@@ -1,0 +1,57 @@
+"""Model configuration schema (the dense-decoder part of the JAX schema)."""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+
+def pad_to(x: int, m: int) -> int:
+    """``x`` rounded up to a multiple of ``m``."""
+    return -(-x // m) * m
+
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """One architecture's dimensions; ``dtype`` is the compute type."""
+
+    name: str
+    family: str                 # dense (the only family ported so far)
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+
+    qkv_bias: bool = False
+    qk_norm: bool = False
+    window: Optional[int] = None          # sliding-window attention
+    rope_theta: float = 10000.0
+
+    dtype: str = "bfloat16"
+    norm_eps: float = 1e-6
+
+    @property
+    def head_dim(self) -> int:
+        """Per-head width."""
+        return self.d_model // self.n_heads
+
+    @property
+    def padded_vocab(self) -> int:
+        """Vocab padded to a multiple of 256, as the JAX package pads it."""
+        return pad_to(self.vocab, 256)
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        """The compute dtype as a ``torch.dtype``."""
+        try:
+            return _DTYPES[self.dtype]
+        except KeyError:
+            raise ValueError(f"unsupported dtype {self.dtype!r}; have "
+                             f"{sorted(_DTYPES)}") from None

@@ -1,0 +1,129 @@
+"""Dense decoder layers (the dense part of the JAX ``models/layers.py``).
+
+Every layer calls the kernels through ``repro_torch.kernels.ops``, never a
+kernel module directly. Projections are plain matrix products; the
+prefill attention and the rotary embedding are plain PyTorch in fp32, as
+the JAX package computes them in jnp outside any Pallas kernel.
+
+Shapes keep the JAX package's layout: activations ``[B, S, D]``, heads
+``[B, S, H, dh]``, projection weights with an explicit head axis
+(``wq [D, Hq, dh]``, ``wo [Hq, dh, D]``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+
+F32 = torch.float32
+MASKED = -1e30        # finite -inf of the JAX flash attention
+
+
+def rms_norm(x, w, eps=1e-6):
+    """RMSNorm in fp32, cast back to x's dtype."""
+    xf = x.to(F32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * w.to(F32)).to(x.dtype)
+
+
+def add_rms_norm(x, residual, w, eps=1e-6):
+    """Fused residual add + RMSNorm (the fused_add_rmsnorm kernel)."""
+    return ops.fused_add_rmsnorm(x, residual, w, eps)
+
+
+def rope(x, positions, theta=10000.0):
+    """Rotary embedding. x: ``[..., seq, heads, head_dim]``, positions:
+    ``[..., seq]``; angles and products in fp32."""
+    half = x.shape[-1] // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=F32, device=x.device)
+                      / half)
+    angles = positions[..., :, None].to(F32) * freqs       # [.., S, half]
+    cos = torch.cos(angles)[..., :, None, :]
+    sin = torch.sin(angles)[..., :, None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def embed_tokens(embedding, tokens):
+    """Rows of the ``[V_pad, D]`` embedding for integer ``tokens``."""
+    return embedding[tokens]
+
+
+def unembed(x, lm_head):
+    """Logits over the padded vocab: ``[..., D] @ [D, V_pad]``."""
+    return x @ lm_head.to(x.dtype)
+
+
+def _heads_matmul(x, w):
+    """``x [B, S, D] @ w [D, H, dh] -> [B, S, H, dh]``."""
+    d, h, dh = w.shape
+    return (x @ w.reshape(d, h * dh).to(x.dtype)).unflatten(-1, (h, dh))
+
+
+def qkv_proj(p, x, cfg: ModelConfig):
+    """x: ``[B, S, D]`` -> q ``[B, S, Hq, dh]``, k/v ``[B, S, Hkv, dh]``,
+    with the QKV bias and the qk-norm where the config has them."""
+    q = _heads_matmul(x, p["wq"])
+    k = _heads_matmul(x, p["wk"])
+    v = _heads_matmul(x, p["wv"])
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(x.dtype)
+        k = k + p["bk"].to(x.dtype)
+        v = v + p["bv"].to(x.dtype)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    return q, k, v
+
+
+def out_proj(p, o, dtype):
+    """o: ``[B, S, Hq, dh]`` -> ``[B, S, D]`` through ``wo [Hq, dh, D]``."""
+    h, dh, d = p["wo"].shape
+    return o.flatten(-2) @ p["wo"].reshape(h * dh, d).to(dtype)
+
+
+def flash_attention(q, k, v):
+    """Causal self-attention, fp32. q: ``[B, Sq, Hq, dh]``, k/v: ``[B, Skv,
+    Hkv, dh]`` (GQA by head grouping). The JAX version walks KV in
+    512-row chunks with an online softmax; over one chunk that is this
+    computation, and over more it differs only by rounding."""
+    b, sq, hq, dh = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    qf = q.to(F32).reshape(b, sq, hkv, g, dh) * dh ** -0.5
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.to(F32))
+    q_pos = torch.arange(sq, device=q.device)
+    k_pos = torch.arange(skv, device=q.device)
+    s = s.masked_fill(k_pos[None, :] > q_pos[:, None], MASKED)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bhgqd", p, v.to(F32))
+    out = out / torch.clamp(l, min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, dh).to(q.dtype)
+
+
+def attention_block(p, x, cfg: ModelConfig, *, positions=None):
+    """Full-sequence (prefill) self-attention sublayer. Returns the
+    sublayer output and this layer's ``(k, v)`` after rope."""
+    b, s, _ = x.shape
+    if cfg.window is not None:
+        raise NotImplementedError("sliding-window attention is not ported")
+    if positions is None:
+        positions = torch.arange(s, device=x.device).expand(b, s)
+    q, k, v = qkv_proj(p, x, cfg)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    o = flash_attention(q, k, v)
+    return out_proj(p, o, x.dtype), (k, v)
+
+
+def mlp_block(p, x):
+    """SwiGLU: fused gate/up product -> silu_and_mul kernel -> down
+    product."""
+    h = x @ p["w_gateup"].to(x.dtype)
+    h = ops.silu_and_mul(h)
+    return h @ p["w_down"].to(x.dtype)

@@ -1,0 +1,155 @@
+"""Cache-management layer of the serving API: the paged KV layout behind
+the ``alloc / write / grow / evict`` surface the engine drives.
+
+``PagedCacheManager`` owns the ``PagePool`` bookkeeping (trap page 0,
+per-slot page tables) and the trap-padded page vectors prefill admission
+writes through. ``CacheConfig`` is the declarative form that ``Engine``
+and ``LLMEngine`` resolve with their own cfg/slots/max_seq. The
+contiguous layout, the radix prefix cache and swap-out are not ported
+yet: the pool is fully subscribed by default, so no request ever waits
+for a page it will need.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.models import registry
+from repro_torch.serving.paging import PagePool
+
+
+class PagedCacheManager:
+    """A global ``[num_pages + 1, page_size, ...]`` block pool (physical
+    page 0 is the trap page) plus per-slot page tables. ``num_pages``
+    defaults to full subscription, ``slots * max_seq / page_size``."""
+
+    def __init__(self, cfg, slots: int, max_seq: int, device, *,
+                 page_size: int = 16, num_pages: Optional[int] = None):
+        if not registry.paged_ok(cfg):
+            raise ValueError(f"family {cfg.family!r} (window={cfg.window}) "
+                             "cannot serve from a paged pool")
+        if max_seq % page_size:
+            raise ValueError(f"page_size={page_size} must divide "
+                             f"max_seq={max_seq}")
+        self.cfg, self.slots, self.max_seq = cfg, slots, max_seq
+        self.device = device
+        self.page_size = page_size
+        self.pages_per_slot = max_seq // page_size
+        if num_pages is None:
+            num_pages = slots * self.pages_per_slot   # full subscription
+        self.num_pages = num_pages
+        self.pool = PagePool(num_pages, page_size, slots,
+                             self.pages_per_slot)
+        self._peak = 0
+        self._util_sum = 0.0
+        self._steps = 0
+
+    def init(self) -> dict:
+        """A fresh device pool; +1 page for the trap page."""
+        return registry.init_paged_cache(self.cfg, self.num_pages + 1,
+                                         self.page_size, self.device)
+
+    # -- residency ----------------------------------------------------------
+    def _n_pages(self, n_tokens: int) -> int:
+        return -(-n_tokens // self.page_size)
+
+    def alloc(self, slot: int, n_tokens: int) -> bool:
+        """All-or-nothing hold for a prompt of ``n_tokens``."""
+        return self.pool.alloc_n(slot, self._n_pages(n_tokens))
+
+    def grow(self, slot: int) -> bool:
+        """Back one more decode page; False when the pool is empty."""
+        return self.pool.alloc_n(slot, 1)
+
+    def evict(self, slot: int) -> None:
+        """Release the slot's pages."""
+        self.pool.release(slot)
+
+    def infeasible(self, n_tokens: int) -> Optional[str]:
+        """Why a request of ``n_tokens`` can never be admitted, or None."""
+        limit = min(self.pool.pages_per_slot, self.num_pages)
+        n = self._n_pages(n_tokens)
+        if n > limit:
+            return (f"prompt needs {n} pages of {self.page_size} but the "
+                    f"pool can hold at most {limit} per request")
+        return None
+
+    # -- device side --------------------------------------------------------
+    def write(self, cache, kv, pages: torch.Tensor):
+        """Scatter one request's prefill cache into its pages, in place."""
+        return registry.write_pages(self.cfg, cache, kv, pages,
+                                    self.page_size)
+
+    def decode(self, params, cache, token, pos, page_table):
+        """One decode step over the pool, in place."""
+        return registry.decode_cached(params, self.cfg, cache, token, pos,
+                                      page_table=page_table)
+
+    # -- dispatch-loop queries ----------------------------------------------
+    def backed(self, slot: int, write_pos: int) -> bool:
+        """Is ``write_pos`` already backed by a page of ``slot``?"""
+        return write_pos // self.page_size < len(self.pool.owned[slot])
+
+    @property
+    def has_free(self) -> bool:
+        """True while the pool has a free page."""
+        return self.pool.num_free > 0
+
+    def page_table(self) -> np.ndarray:
+        """The host page table the next dispatch sends to the device."""
+        return self.pool.table
+
+    def prefill_pages(self, slot: int, n_tokens: int,
+                      bucket_len: Optional[int]) -> np.ndarray:
+        """Physical destinations of a prompt's logical pages, trap-padded
+        to the bucket."""
+        n_real = self._n_pages(n_tokens)
+        plen = bucket_len if bucket_len is not None else n_tokens
+        pages = np.zeros((max(1, self._n_pages(plen)),), np.int64)
+        pages[:n_real] = self.pool.owned[slot]
+        return pages
+
+    def note_step(self) -> None:
+        """Record one dispatch's pool occupancy."""
+        in_use = self.pool.pages_in_use
+        self._steps += 1
+        self._peak = max(self._peak, in_use)
+        self._util_sum += in_use / self.num_pages
+
+    def stats(self) -> dict:
+        """Pool statistics."""
+        return {"paged": True, "page_size": self.page_size,
+                "num_pages": self.num_pages,
+                "peak_pages_in_use": self._peak,
+                "page_util_mean": self._util_sum / max(self._steps, 1)}
+
+
+@dataclasses.dataclass(frozen=True)
+class CacheConfig:
+    """Declarative cache-manager choice, resolved against the engine's
+    (cfg, slots, max_seq, device). ``num_pages=None`` fully subscribes."""
+
+    page_size: int = 16
+    num_pages: Optional[int] = None
+
+    def build(self, cfg, slots: int, max_seq: int,
+              device) -> PagedCacheManager:
+        """The manager this config describes."""
+        return PagedCacheManager(cfg, slots, max_seq, device,
+                                 page_size=self.page_size,
+                                 num_pages=self.num_pages)
+
+
+def make_cache_manager(spec, cfg, slots: int, max_seq: int,
+                       device) -> PagedCacheManager:
+    """Resolve ``None`` (defaults), a ``CacheConfig``, or a ready
+    instance."""
+    if spec is None:
+        spec = CacheConfig()
+    if isinstance(spec, CacheConfig):
+        return spec.build(cfg, slots, max_seq, device)
+    return spec

@@ -1,0 +1,272 @@
+"""Kernel contracts of the PyTorch port against the JAX package, on the CPU.
+
+The same numpy inputs (made from a seed) go to the JAX oracle in
+``repro.kernels.ref`` and to its port in ``repro_torch.kernels.ref``; the
+three ported kernels' wrappers (which take their plain versions for CPU
+tensors) are also held against the JAX Pallas kernels run in interpret
+mode. Tolerances are the JAX package's (``core/agents.py``): fp32 rtol
+1e-5 / atol 1e-4, bf16 3e-2 / 3e-2.
+
+Also here: the guards that keep the port apart from JAX and off the CPU
+unless asked (no ``jax`` / ``repro`` import under ``src/repro_torch`` or
+in ``chip_smoke.py``; CPU tensors never touch the CUDA library; entry
+points raise without a GPU; ``chip_smoke.py`` fails without one).
+"""
+
+import ast
+import functools
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.kernels import _build, ops, ref
+
+REPO = Path(__file__).resolve().parents[1]
+DTYPES = ["float32", "bfloat16"]
+TOL = {"float32": dict(rtol=1e-5, atol=1e-4),
+       "bfloat16": dict(rtol=3e-2, atol=3e-2)}
+JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def both(x: np.ndarray, dtype: str):
+    """The same values as a jax array and a torch tensor of ``dtype`` (both
+    round the fp32 values to nearest even)."""
+    x = np.asarray(x)
+    if x.dtype.kind in "iu":
+        return jnp.asarray(x), torch.from_numpy(x.copy())
+    x = x.astype(np.float32)
+    return (jnp.asarray(x, dtype=JNP[dtype]),
+            torch.from_numpy(x.copy()).to(TORCH[dtype]))
+
+
+def jit(fn, **static):
+    """The JAX function under ``jax.jit`` (one compile instead of one per
+    op; the arithmetic is the same)."""
+    return jax.jit(functools.partial(fn, **static))
+
+
+def close(j, t, dtype):
+    np.testing.assert_allclose(np.asarray(j, np.float32),
+                               t.float().numpy(), **TOL[dtype])
+
+
+def paged_case(b, hq, hkv, dh, page, n_pt, seed=0):
+    """numpy q, pools, page table (tail past kv_len at trap page 0, pages
+    shuffled) and ragged kv_len with 1 and an exact page multiple."""
+    rng = np.random.default_rng(seed)
+    n_pages = b * n_pt + 1
+    lens = rng.integers(1, n_pt * page + 1, size=b).astype(np.int32)
+    lens[0] = 1
+    lens[-1] = 2 * page
+    perm = rng.permutation(np.arange(1, n_pages))
+    table = np.zeros((b, n_pt), np.int32)
+    for i in range(b):
+        used = -(-int(lens[i]) // page)
+        table[i, :used] = perm[i * n_pt:i * n_pt + used]
+    q = rng.standard_normal((b, hq, dh))
+    k = rng.standard_normal((n_pages, page, hkv, dh))
+    v = rng.standard_normal((n_pages, page, hkv, dh))
+    return q, k, v, table, lens
+
+
+# --------------------------------------------------------------------------
+# the six oracles
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("rows", [17, 33])
+def test_oracle_fused_add_rmsnorm(rows, dtype):
+    rng = np.random.default_rng(rows)
+    x, r = rng.standard_normal((2, rows, 64))
+    w = 1.0 + 0.1 * rng.standard_normal(64)
+    (xj, xt), (rj, rt) = both(x, dtype), both(r, dtype)
+    wj, wt = both(w, "float32")
+    yj, nj = jit(jref.fused_add_rmsnorm)(xj, rj, wj)
+    yt, nt = ref.fused_add_rmsnorm(xt, rt, wt, 1e-6)
+    assert yt.dtype == TORCH[dtype] and nt.dtype == TORCH[dtype]
+    close(yj, yt, dtype)
+    close(nj, nt, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("rows", [17, 33])
+def test_oracle_silu_and_mul(rows, dtype):
+    x = np.random.default_rng(rows).standard_normal((rows, 2 * 96)) * 3
+    xj, xt = both(x, dtype)
+    out = ref.silu_and_mul(xt)
+    assert out.shape == (rows, 96) and out.dtype == TORCH[dtype]
+    close(jit(jref.silu_and_mul)(xj), out, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_oracle_merge_attn_states_lse(dtype):
+    rng = np.random.default_rng(3)
+    va, vb = rng.standard_normal((2, 17, 4, 32))
+    sa, sb = rng.standard_normal((2, 17, 4)) * 4
+    sa[0, :2] = -np.inf                 # one side empty
+    sb[1, 0] = -np.inf
+    sa[2, 3] = sb[2, 3] = -np.inf       # both empty: V = 0, S = -inf
+    (vaj, vat), (vbj, vbt) = both(va, dtype), both(vb, dtype)
+    (saj, sat), (sbj, sbt) = both(sa, "float32"), both(sb, "float32")
+    vj, sj = jit(jref.merge_attn_states_lse)(vaj, saj, vbj, sbj)
+    vt, st = ref.merge_attn_states_lse(vat, sat, vbt, sbt)
+    close(vj, vt, dtype)
+    np.testing.assert_array_equal(np.isneginf(np.asarray(sj)),
+                                  torch.isneginf(st).numpy())
+    fin = np.isfinite(np.asarray(sj))
+    np.testing.assert_allclose(np.asarray(sj)[fin], st.numpy()[fin],
+                               **TOL["float32"])
+    assert (vt[2, 3] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("hq,hkv", [(2, 2), (4, 2), (14, 2)])
+def test_oracle_flash_decode_and_lse(hq, hkv, dtype):
+    rng = np.random.default_rng(hq)
+    b, s, dh = 3, 40, 32
+    q = rng.standard_normal((b, hq, dh))
+    k, v = rng.standard_normal((2, b, s, hkv, dh))
+    lens = np.array([1, 17, 40], np.int32)
+    (qj, qt), (kj, kt), (vj, vt) = both(q, dtype), both(k, dtype), \
+        both(v, dtype)
+    lj, lt = both(lens, dtype)
+    close(jit(jref.flash_decode_attention)(qj, kj, vj, kv_len=lj),
+          ref.flash_decode_attention(qt, kt, vt, kv_len=lt), dtype)
+    close(jit(jref.flash_decode_lse)(qj, kj, kv_len=lj),
+          ref.flash_decode_lse(qt, kt, kv_len=lt), "float32")
+    close(jit(jref.flash_decode_attention)(qj, kj, vj),
+          ref.flash_decode_attention(qt, kt, vt), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("hq,hkv", [(2, 2), (4, 2), (14, 2)])
+def test_oracle_paged_flash_decode(hq, hkv, dtype):
+    q, k, v, table, lens = paged_case(3, hq, hkv, 32, 8, 4)
+    (qj, qt), (kj, kt), (vj, vt) = both(q, dtype), both(k, dtype), \
+        both(v, dtype)
+    (tj, tt), (lj, lt) = both(table, dtype), both(lens, dtype)
+    close(jit(jref.paged_flash_decode_attention)(qj, kj, vj, tj,
+                                                  kv_len=lj),
+          ref.paged_flash_decode_attention(qt, kt, vt, tt, kv_len=lt), dtype)
+
+
+# --------------------------------------------------------------------------
+# the ported kernels' wrappers against the Pallas kernels (interpret mode)
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("rows", [17, 33])
+def test_fused_add_rmsnorm_matches_pallas(rows, dtype):
+    rng = np.random.default_rng(rows + 1)
+    x, r = rng.standard_normal((2, rows, 128))
+    w = 1.0 + 0.1 * rng.standard_normal(128)
+    (xj, xt), (rj, rt), (wj, wt) = both(x, dtype), both(r, dtype), \
+        both(w, "float32")
+    yj, nj = jit(jops.fused_add_rmsnorm, impl="pallas")(xj, rj, wj)
+    yt, nt = ops.fused_add_rmsnorm(xt, rt, wt, 1e-6)
+    close(yj, yt, dtype)
+    close(nj, nt, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("rows", [17, 33])
+def test_silu_and_mul_matches_pallas(rows, dtype):
+    x = np.random.default_rng(rows + 2).standard_normal((rows, 2 * 256)) * 3
+    xj, xt = both(x, dtype)
+    close(jit(jops.silu_and_mul, impl="pallas")(xj), ops.silu_and_mul(xt),
+          dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("hq,hkv", [(2, 2), (4, 2), (14, 2)])
+def test_paged_decode_matches_pallas(hq, hkv, dtype):
+    """Group sizes 1, 2 and 7; kv_len 1 and an exact page multiple; the
+    table's tail past kv_len points at trap page 0."""
+    q, k, v, table, lens = paged_case(2, hq, hkv, 32, 8, 3, seed=hq)
+    (qj, qt), (kj, kt), (vj, vt) = both(q, dtype), both(k, dtype), \
+        both(v, dtype)
+    (tj, tt), (lj, lt) = both(table, dtype), both(lens, dtype)
+    close(jit(jops.paged_flash_decode_attention, impl="pallas")(
+              qj, kj, vj, tj, kv_len=lj),
+          ops.paged_flash_decode_attention(qt, kt, vt, tt, kv_len=lt), dtype)
+
+
+# --------------------------------------------------------------------------
+# guards
+# --------------------------------------------------------------------------
+
+def _imports(path: Path) -> set:
+    mods = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            mods.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            mods.add(node.module)
+    return mods
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    assert len(files) > 10
+    for path in files:
+        for mod in _imports(path):
+            top = mod.split(".")[0]
+            assert top not in ("jax", "jaxlib", "repro"), \
+                f"{path.relative_to(REPO)} imports {mod}"
+
+
+def test_cpu_tensors_never_touch_the_kernel_library(monkeypatch):
+    def refuse():
+        raise AssertionError("the CUDA library was loaded for a CPU tensor")
+
+    monkeypatch.setattr(_build, "library", refuse)
+    before = ops.launch_counts()
+    x = torch.randn(5, 64)
+    ops.fused_add_rmsnorm(x, torch.randn(5, 64), torch.ones(64))
+    ops.silu_and_mul(x)
+    q, k, v, table, lens = paged_case(2, 4, 2, 16, 4, 3)
+    t = [torch.tensor(a, dtype=torch.float32) for a in (q, k, v)]
+    ops.paged_flash_decode_attention(*t, torch.from_numpy(table),
+                                     kv_len=torch.from_numpy(lens))
+    assert ops.launch_counts() == before
+
+
+def test_kernels_refuse_other_devices():
+    x = torch.empty((2, 8), device="meta")
+    with pytest.raises(ValueError):
+        ops.silu_and_mul(x)
+    with pytest.raises(ValueError):
+        ops.fused_add_rmsnorm(x, x, torch.empty(8, device="meta"))
+
+
+def test_variant_record_names_known_kernels():
+    assert ops.get_variant("silu_and_mul") is None
+    with pytest.raises(KeyError):
+        ops.set_variants(no_such_kernel="x")
+    with pytest.raises(KeyError):
+        ops.get_variant("no_such_kernel")
+
+
+def test_chip_smoke_fails_without_a_gpu_or_the_repo(tmp_path):
+    """Alone in a directory and without a GPU, chip_smoke.py exits
+    non-zero and prints no result line."""
+    alone = tmp_path / "chip_smoke.py"
+    alone.write_text((REPO / "chip_smoke.py").read_text())
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    proc = subprocess.run([sys.executable, str(alone)], cwd=tmp_path,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
