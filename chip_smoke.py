@@ -30,7 +30,6 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-import subprocess
 import sys
 import time
 
@@ -49,13 +48,6 @@ SERVE = dict(arch="qwen2-0.5b", slots=8, max_seq=512, page_size=16,
 
 def log(*args):
     print(*args, flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], check=True,
-                         capture_output=True, text=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
 
 
 def device_ms(fn, reps: int = 50, rounds: int = 5) -> float:
@@ -206,18 +198,10 @@ def phase_kernels(rows_out: dict) -> bool:
     return ok
 
 
-def serve_prompts(cfg, n, lo, hi, seed):
-    rng = np.random.default_rng(seed)
-    lens = rng.integers(lo, hi + 1, size=n)
-    return [rng.integers(0, cfg.vocab, size=int(m)).astype(np.int32)
-            for m in lens]
-
-
 def phase_serve() -> tuple[bool, dict]:
     from repro_torch import configs
-    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import measure, prompts_for
     from repro_torch.models import registry
-    from repro_torch.serving import LLMEngine
 
     s = SERVE
     cfg = configs.get(s["arch"])
@@ -228,41 +212,30 @@ def phase_serve() -> tuple[bool, dict]:
         f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, d_ff "
         f"{cfg.d_ff}, vocab {cfg.padded_vocab}) {cfg.dtype}, seeded init "
         f"{time.perf_counter() - t0:.1f} s")
-    kw = dict(slots=s["slots"], max_seq=s["max_seq"],
-              page_size=s["page_size"])
-    # warm-up on an engine of its own: first calls of cuBLAS and the
-    # allocator stay out of the measured run
-    LLMEngine(params, cfg, **kw).generate(
-        serve_prompts(cfg, 2, 16, 64, 99), max_new_tokens=4)
-    prompts = serve_prompts(cfg, s["requests"], s["min_prompt"],
-                            s["max_prompt"], s["seed"])
-    llm = LLMEngine(params, cfg, **kw)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launch_counts()
-    outs = llm.generate(prompts, max_new_tokens=s["max_new"])
-    torch.cuda.synchronize()
-    counts = ops.launch_counts()
-    st = llm.stats()
-    steps, prefills = st["steps"], s["requests"]
+    prompts = prompts_for(cfg, s["requests"], s["min_prompt"],
+                          s["max_prompt"], s["seed"])
+    m, outs = measure(params, cfg, prompts, max_new=s["max_new"],
+                      slots=s["slots"], max_seq=s["max_seq"],
+                      page_size=s["page_size"], device="cuda")
+    steps, prefills = m["steps"], s["requests"]
     want = {"fused_add_rmsnorm": (2 * cfg.n_layers + 1) * (steps + prefills),
             "silu_and_mul": cfg.n_layers * (steps + prefills),
             "paged_flash_decode": cfg.n_layers * steps}
-    log(f"  {s['requests']} requests, prompt lengths "
-        f"{[len(p) for p in prompts]}, max_new_tokens {s['max_new']}, "
-        f"slots {s['slots']}, max_seq {s['max_seq']}, page {s['page_size']}")
-    log(f"  tok_s={st['tok_s']:.1f} mean_ttft_s={st['ttft']:.4f} "
-        f"steps={steps} readbacks={st['readbacks']} "
-        f"prefill_buckets={st['prefill_shapes']} "
-        f"peak_mem_GiB={torch.cuda.max_memory_allocated() / 2**30:.2f}")
+    log(f"  {s['requests']} requests, prompt lengths {m['prompt_lens']}, "
+        f"max_new_tokens {s['max_new']}, slots {s['slots']}, max_seq "
+        f"{s['max_seq']}, page {s['page_size']}")
+    log(f"  tok_s={m['tok_s']:.1f} mean_ttft_s={m['ttft_s']:.4f} "
+        f"steps={steps} readbacks={m['readbacks']} "
+        f"prefill_buckets={m['prefill_buckets']} "
+        f"peak_mem_GiB={m['peak_mem_gib']:.2f}")
     ok = True
-    for name, n in counts.items():
+    for name, n in m["launches"].items():
         good = n == want[name]
         ok &= good
         log(f"  launches {name}: {n} (expected {want[name]}) "
             f"{'ok' if good else 'WRONG'}")
-    if st["readbacks"] != steps:
-        log(f"  FAIL readbacks {st['readbacks']} != steps {steps}")
+    if m["readbacks"] != steps:
+        log(f"  FAIL readbacks {m['readbacks']} != steps {steps}")
         ok = False
     for o in outs:
         if o.finish_reason != "done" or len(o.tokens) != s["max_new"] \
@@ -270,13 +243,14 @@ def phase_serve() -> tuple[bool, dict]:
             log(f"  FAIL request {o.rid}: {o.finish_reason} "
                 f"{len(o.tokens)} tokens {o.error or ''}")
             ok = False
-    return ok, counts
+    return ok, m["launches"]
 
 
 def phase_reference() -> bool:
     """Reduced qwen2 config in fp32: prefill and decode logits and the
     greedy streams on the card against the plain versions on the CPU."""
     from repro_torch import configs
+    from repro_torch.launch.serve import prompts_for
     from repro_torch.models import registry, transformer
     from repro_torch.serving import LLMEngine
 
@@ -311,7 +285,7 @@ def phase_reference() -> bool:
     log(f"  decode logits card vs cpu: max_abs={err[0]:.3e} "
         f"{'ok' if err[2] else 'MISMATCH'}")
     ok &= err[2]
-    prompts = serve_prompts(cfg, 6, 3, 40, 2)
+    prompts = prompts_for(cfg, 6, 3, 40, 2)
     runs = []
     for params, dev in ((gpu, None), (cpu, "cpu")):
         llm = LLMEngine(params, cfg, slots=3, max_seq=64, device=dev)
@@ -331,6 +305,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.kernels import _build
+    from repro_torch.launch.serve import card as card_line
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

@@ -9,7 +9,6 @@ from repro_torch.configs.base import ModelConfig
 
 _MODULES = {"qwen2-0.5b": qwen2_0_5b}
 
-ARCH_IDS = tuple(_MODULES)
 CONFIGS = {k: m.CONFIG for k, m in _MODULES.items()}
 
 

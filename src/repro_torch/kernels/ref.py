@@ -53,7 +53,7 @@ def fused_add_rmsnorm(x, residual, weight, eps: float = 1e-6):
 
 
 def silu_and_mul(x):
-    """SwiGLU gate: ``silu(x[..., :d]) * x[..., d:]``, ``d = x.shape[-1]//2``."""
+    """SwiGLU gate: ``silu(x[..., :d]) * x[..., d:]``, d = last dim / 2."""
     d = x.shape[-1] // 2
     gate = x[..., :d].to(F32)
     up = x[..., d:].to(F32)

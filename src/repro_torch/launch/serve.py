@@ -17,6 +17,7 @@ and by host time.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import time
@@ -39,50 +40,48 @@ def prompts_for(cfg, n: int, lo: int, hi: int, seed: int) -> list:
             for m in lens]
 
 
-def _card() -> str:
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-def run(args) -> dict:
-    """Warm up on an engine of its own, then serve the measured wave."""
-    dev = resolve_device(args.device)
-    cfg = configs.smoke(args.arch) if args.smoke else configs.get(args.arch)
-    params = registry.init_params(cfg, seed=args.seed, device=dev)
-    kw = dict(slots=args.slots, max_seq=args.max_seq,
-              page_size=args.page_size, device=dev)
-    LLMEngine(params, cfg, **kw).generate(
-        prompts_for(cfg, 2, 16, 64, args.seed + 99), max_new_tokens=4)
-    prompts = prompts_for(cfg, args.requests, args.min_prompt,
-                          args.max_prompt, args.seed)
-    llm = LLMEngine(params, cfg, **kw)
+def measure(params, cfg, prompts, *, max_new: int, slots: int,
+            max_seq: int, page_size: int, device,
+            profile_rows: int = 0) -> tuple[dict, list]:
+    """Warm up on an engine of its own, then serve ``prompts`` once on a
+    fresh engine, with every kernel's launch count set to 0 just before.
+    Returns (metrics, the ``RequestOutput`` list). ``profile_rows > 0``
+    runs the measured wave under ``torch.profiler`` and prints its top
+    operators."""
+    dev = resolve_device(device)
     cuda = dev.type == "cuda"
+    kw = dict(slots=slots, max_seq=max_seq, page_size=page_size, device=dev)
+    LLMEngine(params, cfg, **kw).generate(
+        prompts_for(cfg, 2, 16, 64, seed=99), max_new_tokens=4)
+    llm = LLMEngine(params, cfg, **kw)
     if cuda:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
-    prof = None
-    if args.profile:
-        acts = [torch.profiler.ProfilerActivity.CPU]
+    acts = [torch.profiler.ProfilerActivity.CPU] + \
+        ([torch.profiler.ProfilerActivity.CUDA] if cuda else [])
+    prof = torch.profiler.profile(activities=acts) if profile_rows \
+        else contextlib.nullcontext()
+    with prof:
+        t0 = time.perf_counter()
+        outs = llm.generate(prompts, max_new_tokens=max_new)
         if cuda:
-            acts.append(torch.profiler.ProfilerActivity.CUDA)
-        prof = torch.profiler.profile(activities=acts)
-        prof.__enter__()
-    t0 = time.perf_counter()
-    outs = llm.generate(prompts, max_new_tokens=args.max_new)
-    if cuda:
-        torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    if prof is not None:
-        prof.__exit__(None, None, None)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     st = llm.stats()
     out = {"arch": cfg.name, "d_model": cfg.d_model,
            "n_layers": cfg.n_layers, "dtype": cfg.dtype,
            "device": str(dev), "requests": len(outs),
-           "prompt_lens": [len(p) for p in prompts],
-           "max_new": args.max_new, "slots": args.slots,
+           "prompt_lens": [len(p) for p in prompts], "max_new": max_new,
+           "slots": slots, "max_seq": max_seq, "page_size": page_size,
            "wall_s": wall, "tok_s": st["tok_s"], "ttft_s": st["ttft"],
            "steps": st["steps"], "readbacks": st["readbacks"],
            "prefill_buckets": st["prefill_shapes"],
@@ -90,8 +89,8 @@ def run(args) -> dict:
            "all_done": all(o.finish_reason == "done" for o in outs)}
     if cuda:
         out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
-        out["card"] = _card()
-    if prof is not None:
+        out["card"] = card()
+    if profile_rows:
         ev = prof.key_averages()
         # device-side events only: an operator's row repeats the time of
         # the kernels it launched
@@ -103,10 +102,24 @@ def run(args) -> dict:
         out["kernel_launches"] = sum(e.count for e in ev
                                      if e.key == "cudaLaunchKernel")
         sort = "self_cuda_time_total" if cuda else "self_cpu_time_total"
-        print(ev.table(sort_by=sort, row_limit=args.rows))
+        print(ev.table(sort_by=sort, row_limit=profile_rows))
         if cuda:
             print(ev.table(sort_by="self_cpu_time_total",
-                           row_limit=args.rows))
+                           row_limit=profile_rows))
+    return out, outs
+
+
+def run(args) -> dict:
+    """Seeded weights and prompts for ``args``, then ``measure``."""
+    dev = resolve_device(args.device)
+    cfg = configs.smoke(args.arch) if args.smoke else configs.get(args.arch)
+    params = registry.init_params(cfg, seed=args.seed, device=dev)
+    prompts = prompts_for(cfg, args.requests, args.min_prompt,
+                          args.max_prompt, args.seed)
+    out, _ = measure(params, cfg, prompts, max_new=args.max_new,
+                     slots=args.slots, max_seq=args.max_seq,
+                     page_size=args.page_size, device=dev,
+                     profile_rows=args.rows if args.profile else 0)
     return out
 
 
