@@ -16,6 +16,7 @@ Tolerances: fp32 rtol 1e-5 / atol 1e-4, bf16 3e-2 / 3e-2 (the JAX
 package's ``core/agents.py``).
 """
 
+import argparse
 import dataclasses
 
 import jax
@@ -211,6 +212,18 @@ def test_entry_points_need_a_gpu_unless_told_cpu(monkeypatch):
         registry.init_params(cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         convert.params_from_jax(tree, cfg)
+
+
+def test_serve_driver_runs_the_reduced_config_on_cpu():
+    from repro_torch.launch import serve
+    out = serve.run(argparse.Namespace(
+        arch=ARCH, smoke=True, device="cpu", requests=5, slots=2,
+        max_seq=64, page_size=16, min_prompt=3, max_prompt=30, max_new=4,
+        seed=0, profile=False, rows=0))
+    assert out["all_done"] and out["requests"] == 5
+    assert out["readbacks"] == out["steps"] > 0
+    assert out["launches"] == {"fused_add_rmsnorm": 0, "silu_and_mul": 0,
+                               "paged_flash_decode": 0}
 
 
 def test_seeded_init_is_reproducible_and_shaped():
