@@ -1,4 +1,4 @@
-"""Serving driver of the port: ``LLMEngine.generate`` on seeded random
+"""Serving command of the port: ``LLMEngine.generate`` on seeded random
 weights and seeded prompts, with an optional ``torch.profiler`` breakdown.
 
 On the card (the default device):

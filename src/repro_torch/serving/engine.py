@@ -201,7 +201,8 @@ class Engine:
     def _prefill(self, i: int, req: Request, prompt: np.ndarray, n: int,
                  pages: torch.Tensor) -> torch.Tensor:
         """Prefill one prompt, write its pages and reset slot ``i``'s
-        device state. Returns the first token (a device scalar)."""
+        device state (the body of the JAX engine's ``_make_admit``).
+        Returns the first token (a device scalar)."""
         tokens = torch.tensor(prompt[None], dtype=torch.long,
                               device=self.device)
         logits, kv = registry.prefill(self.params, self.cfg, tokens,
@@ -244,8 +245,9 @@ class Engine:
                     or any(s.req is not None for s in self.slots))
 
     def _decode(self):
-        """Dispatch one decode step over every slot; returns the device
-        ``(emit_tok, done)`` pair (emit -1 where the slot was idle)."""
+        """Dispatch one decode step over every slot (the greedy body of
+        the JAX engine's ``_make_step``); returns the device ``(emit_tok,
+        done)`` pair (emit -1 where the slot was idle)."""
         table = self._upload(self.cm.page_table())
         logits, self.cache = self.cm.decode(self.params, self.cache,
                                             self._token, self._pos, table)

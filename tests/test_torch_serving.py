@@ -214,7 +214,7 @@ def test_entry_points_need_a_gpu_unless_told_cpu(monkeypatch):
         convert.params_from_jax(tree, cfg)
 
 
-def test_serve_driver_runs_the_reduced_config_on_cpu():
+def test_serve_command_runs_the_reduced_config_on_cpu():
     from repro_torch.launch import serve
     out = serve.run(argparse.Namespace(
         arch=ARCH, smoke=True, device="cpu", requests=5, slots=2,
