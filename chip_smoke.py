@@ -9,14 +9,21 @@ Phases, each of which fails the run (non-zero exit) on any error:
    CUDA versions, and the build of the CUDA kernel library from
    ``src/repro_torch/kernels/csrc`` (timed).
 2. Each Hopper kernel against its plain PyTorch version on the card, at
-   the shapes the serving path gives it, in bf16 and fp32, with the
-   tolerance stated; each kernel's time beside its bound and beside the
-   plain version's time.
-3. Serve: ``LLMEngine`` on qwen2-0.5b at full width in bf16 with seeded
-   random weights, 16 greedy requests; every request must finish with 32
+   the shapes its path gives it, in bf16 and fp32, with the tolerance
+   stated; each kernel's time beside its bound and beside the plain
+   version's time. The shipped genomes, and the paper's baseline genomes.
+3. Tune: the Astra agent loop (``optimize_all``, greedy, 5 rounds) on the
+   paper's three kernels, tested on the card in fp32 and bf16 at the JAX
+   suite shapes and timed with CUDA events (L2 flushed before every timed
+   launch). It prints each Log, paper Table 2 (baseline vs best, re-timed
+   and re-validated) and Table 3 (the single-agent baseline timed the same
+   way), then reintegrates the best genomes.
+4. Serve: ``LLMEngine`` on qwen2-0.5b at full width in bf16 with seeded
+   random weights, 16 greedy requests, once with the shipped genomes and
+   once with the reintegrated ones; every request must finish with 32
    tokens, ``readbacks == steps``, and each kernel's launch count must be
-   what the path implies.
-4. Reference: on the reduced config in fp32, the port's logits and greedy
+   what the path and the installed genome imply.
+5. Reference: on the reduced config in fp32, the port's logits and greedy
    streams on the card agree with its plain versions on the CPU.
 
 The line before the last holds the card's name and power limit; the line
@@ -83,12 +90,17 @@ def randn(shape, dtype, seed, scale=1.0):
     return torch.tensor(x, dtype=torch.float32).to("cuda", dtype)
 
 
-def compare(got, want, dtype):
-    """(max abs error, max rel error, within tolerance)."""
+def compare(got, want):
+    """(max abs error, max rel error, within tolerance) at the tolerance of
+    ``want``'s dtype; non-finite entries (the merge's -inf scores) must
+    match exactly and are left out of the errors."""
+    tol = TOL[want.dtype]
     got, want = got.float(), want.float()
+    fin = torch.isfinite(want)
+    same = bool((got[~fin] == want[~fin]).all())
+    got, want = got[fin], want[fin]
     err = (got - want).abs()
-    tol = TOL[dtype]
-    ok = bool((err <= tol["atol"] + tol["rtol"] * want.abs()).all())
+    ok = same and bool((err <= tol["atol"] + tol["rtol"] * want.abs()).all())
     rel = float((err / want.abs().clamp(min=1e-6)).max())
     return float(err.max()), rel, ok
 
@@ -112,9 +124,26 @@ def paged_inputs(b, hq, hkv, dh, page, n_pt, dtype, seed=0):
             torch.tensor(lens, dtype=torch.int32, device="cuda"))
 
 
+def merge_inputs(shape, dtype, seed=0):
+    """The tune suite's merge inputs (5% of s_b at -inf), plus a row with
+    one side empty and a row with both sides empty."""
+    from repro_torch.kernels import merge_attn_states
+    va, sa, vb, sb = merge_attn_states.make_inputs(
+        shape, dtype=dtype, seed=seed, device="cuda").args
+    sa[0, :2] = float("-inf")
+    sa[1, 0] = sb[1, 0] = float("-inf")
+    return va, sa, vb, sb
+
+
 def kernel_cases():
-    """(kernel, label, dtype, kernel call, plain call, bytes, ops)."""
+    """(kernel, label, dtype, kernel call, plain call, bytes, ops,
+    l2_cold, main): ``main`` marks the kernel-table row (bf16, the shipped
+    genome, the decode shape; for the merge, which the tune phase drives,
+    the largest suite shape)."""
+    from repro_torch.kernels import fused_add_rmsnorm as rms
+    from repro_torch.kernels import merge_attn_states as merge
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import silu_and_mul as silu
     cases = []
     for dtype in (torch.bfloat16, torch.float32):
         es = torch.tensor([], dtype=dtype).element_size()
@@ -125,14 +154,31 @@ def kernel_cases():
             cases.append(("fused_add_rmsnorm", f"rows={rows} d={d}", dtype,
                           lambda x=x, r=r, w=w: ops.fused_add_rmsnorm(x, r, w),
                           lambda x=x, r=r, w=w: ref.fused_add_rmsnorm(x, r, w),
-                          4 * rows * d * es + 4 * d, 6 * rows * d))
+                          4 * rows * d * es + 4 * d, 6 * rows * d, False,
+                          rows == 8))
+            if rows == 8:
+                g = rms.BASELINE
+                cases.append((
+                    "fused_add_rmsnorm", f"rows={rows} d={d} {g.describe()}",
+                    dtype,
+                    lambda x=x, r=r, w=w, g=g:
+                        rms.fused_add_rmsnorm(x, r, w, 1e-6, g),
+                    lambda x=x, r=r, w=w, g=g: rms.plain(g, x, r, w),
+                    4 * rows * d * es + 4 * d, 6 * rows * d, False, False))
         for rows in (1, 8, 256):
             d = 4864
             x = randn((rows, 2 * d), dtype, 4, scale=3.0)
             cases.append(("silu_and_mul", f"rows={rows} d={d}", dtype,
                           lambda x=x: ops.silu_and_mul(x),
                           lambda x=x: ref.silu_and_mul(x),
-                          3 * rows * d * es, 6 * rows * d))
+                          3 * rows * d * es, 6 * rows * d, False, rows == 8))
+            if rows == 8:
+                g = silu.BASELINE
+                cases.append((
+                    "silu_and_mul", f"rows={rows} d={d} {g.describe()}",
+                    dtype, lambda x=x, g=g: silu.silu_and_mul(x, g),
+                    lambda x=x, g=g: silu.plain(g, x),
+                    3 * rows * d * es, 6 * rows * d, False, False))
         for hq, hkv, dh in ((14, 2, 64), (32, 8, 128)):
             b, page, n_pt = 8, 16, SERVE["max_seq"] // 16
             q, k, v, table, lens = paged_inputs(b, hq, hkv, dh, page, n_pt,
@@ -149,7 +195,24 @@ def kernel_cases():
                     ops.paged_flash_decode_attention(q, k, v, t, kv_len=n),
                 lambda q=q, k=k, v=v, t=table, n=lens:
                     ref.paged_flash_decode_attention(q, k, v, t, kv_len=n),
-                nbytes, 4 * rows * hq * dh))
+                nbytes, 4 * rows * hq * dh, False, hq == 14))
+        for shape in ({"seq": 512, "heads": 32, "head_dim": 256},
+                      {"seq": 768, "heads": 32, "head_dim": 256},
+                      {"seq": 100, "heads": 7, "head_dim": 128}):
+            if dtype == torch.float32 and shape["seq"] == 768:
+                continue
+            va, sa, vb, sb = merge_inputs(shape, dtype)
+            n, d = shape["seq"] * shape["heads"], shape["head_dim"]
+            for g in (merge.OPTIMIZED, merge.BASELINE):
+                cases.append((
+                    "merge_attn_states_lse",
+                    f"[{shape['seq']},{shape['heads']},{d}] {g.describe()}",
+                    dtype,
+                    lambda a=(va, sa, vb, sb), g=g:
+                        merge.merge_attn_states_lse(*a, g),
+                    lambda a=(va, sa, vb, sb), g=g: merge.plain(g, *a),
+                    3 * n * d * es + 12 * n, 3 * n * d, True,
+                    n == 768 * 32 and g is merge.OPTIMIZED))
     return cases
 
 
@@ -160,46 +223,132 @@ SOURCES = {
                      "src/repro/kernels/silu_and_mul.py:102"),
     "paged_flash_decode": ("src/repro_torch/kernels/csrc/paged_decode.cu",
                            "src/repro/kernels/flash_decode.py:390"),
+    "merge_attn_states_lse": (
+        "src/repro_torch/kernels/csrc/merge_attn_states.cu",
+        "src/repro/kernels/merge_attn_states.py:122"),
 }
-# the row of the kernel table: the decode shape of the serving path, bf16
-MAIN_CASE = {"fused_add_rmsnorm": "rows=8 d=896",
-             "silu_and_mul": "rows=8 d=4864",
-             "paged_flash_decode": "b=8 hq/hkv=14/2 d=64"}
+REPS_COLD = 100
+
+
+def cold_ms(fn) -> float:
+    """Median device time of one call with L2 flushed (a 64 MB read)
+    before it: the profiling agent's method."""
+    from repro_torch.core.agents import time_launches
+    return float(np.median(time_launches(fn, REPS_COLD))) / 1e3
 
 
 def phase_kernels(rows_out: dict) -> bool:
     ok = True
-    for name, label, dtype, kern, plain, nbytes, nops in kernel_cases():
+    for name, label, dtype, kern, plain, nbytes, nops, l2_cold, main in \
+            kernel_cases():
         got, want = kern(), plain()
         torch.cuda.synchronize()
         if isinstance(got, tuple):
-            errs = [compare(g, w, dtype) for g, w in zip(got, want)]
+            errs = [compare(g, w) for g, w in zip(got, want)]
             err = max(e[0] for e in errs), max(e[1] for e in errs), \
                 all(e[2] for e in errs)
         else:
-            err = compare(got, want, dtype)
-        ms, plain_ms = device_ms(kern), device_ms(plain)
+            err = compare(got, want)
+        timer = cold_ms if l2_cold else device_ms
+        ms, plain_ms = timer(kern), timer(plain)
         bound_ms = max(nbytes / HBM_BYTES_S, nops / PEAK_OPS_S[dtype]) * 1e3
         tol = TOL[dtype]
         log(f"  {name:20s} {str(dtype)[6:]:8s} {label}: max_abs={err[0]:.3e}"
             f" max_rel={err[1]:.3e} (tol rtol={tol['rtol']} "
             f"atol={tol['atol']}) {'ok' if err[2] else 'MISMATCH'}; "
             f"kernel {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, "
-            f"bound {bound_ms * 1e3:.3f} us (bytes)")
+            f"bound {bound_ms * 1e3:.3f} us (bytes)"
+            f"{', L2 cold' if l2_cold else ''}")
         ok &= err[2]
-        if dtype == torch.bfloat16 and label.startswith(MAIN_CASE[name]):
+        if main and dtype == torch.bfloat16:
             src, replaces = SOURCES[name]
             rows_out[name] = {
                 "name": name, "route": "cuda", "source": src,
                 "replaces": replaces, "launches": None,
                 "max_abs_err": err[0], "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_by": "bytes",
-                "library_ms": None}
+                "library_ms": None, "shape": label,
+                "timing": ("single launch after a 64 MB read, median of "
+                           f"{REPS_COLD}") if l2_cold
+                else "50 launches in a CUDA graph, L2 warm, median of 5"}
     return ok
 
 
-def phase_serve() -> tuple[bool, dict]:
+def phase_tune() -> tuple[bool, dict, dict]:
+    """The agent loop on the card; returns (ok, launch counts of the loop,
+    {kernel: Log}), with the best genomes reintegrated."""
+    from repro_torch.core import (ProfilingAgent, TestingAgent,
+                                  optimize_single_agent, reintegrate)
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.registry import get_space, suite_tests
+    from repro_torch.search import optimize_all
+
+    rounds = 5
+    testing = TestingAgent()
+    profiling = ProfilingAgent(backend="cuda")
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    results = optimize_all(rounds=rounds, testing=testing,
+                           profiling=profiling)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    log(f"  optimize_all(rounds={rounds}, greedy): "
+        f"{time.perf_counter() - t0:.1f} s; launches {counts}")
+    ok = True
+    for name, lg in results.items():
+        log(f"  -- {name} ({len(lg.entries)} entries, cache "
+            f"{lg.meta['cache']}, stages {lg.meta['stages']})")
+        log(lg.table())
+        if len(lg.entries) != rounds + 1:
+            log(f"  FAIL {name}: {len(lg.entries)} log entries, want "
+                f"{rounds + 1}")
+            ok = False
+        if not lg.best().correct:
+            log(f"  FAIL {name}: best entry not correct")
+            ok = False
+    hifi = ProfilingAgent(backend="cuda")
+    t2, t3 = [], []
+    for i, (name, lg) in enumerate(results.items(), 1):
+        space = get_space(name)
+        tests = suite_tests(space, testing)
+        base = hifi.profile(space, space.baseline, tests).geomean_latency_us
+        best = lg.best().code
+        opt = hifi.profile(space, best, tests).geomean_latency_us
+        good, err = testing.validate(space, best, tests)
+        ok &= good
+        t2.append((name, f"K{i}", base, opt, good, err, best.describe()))
+        sa = optimize_single_agent(name, rounds=rounds)
+        sa_lat = hifi.profile(space, sa.final_variant,
+                              tests).geomean_latency_us
+        sa_ok, _ = testing.validate(space, sa.final_variant, tests)
+        t3.append((name, base, base / sa_lat, base / opt, sa_ok,
+                   sa.final_variant.describe()))
+    log("  Table 2: baseline vs Astra-optimized, geomean over the suite "
+        "(us, single launches, L2 flushed)")
+    for name, k, base, opt, good, err, genome in t2:
+        log(f"    {k} {name}: baseline {base:.2f} us, best {opt:.2f} us, "
+            f"speedup {base / opt:.3f}x, correct {good} (max_err "
+            f"{err:.3f}), best genome {genome}")
+        if not good:
+            log(f"  FAIL {name}: best genome fails re-validation on the card")
+    geo = float(np.exp(np.mean([np.log(r[2] / r[3]) for r in t2])))
+    log(f"    geomean speedup {geo:.3f}x")
+    log("  Table 3: single agent vs multi agent (speedup over baseline)")
+    for name, base, sa, ma, sa_ok, genome in t3:
+        log(f"    {name}: baseline {base:.2f} us, SA {sa:.3f}x (correct "
+            f"{sa_ok}, {genome}), MA {ma:.3f}x")
+    gs = float(np.exp(np.mean([np.log(r[2]) for r in t3])))
+    gm = float(np.exp(np.mean([np.log(r[3]) for r in t3])))
+    log(f"    geomean SA {gs:.3f}x MA {gm:.3f}x")
+    reintegrate(results)
+    log("  reintegrated: " + "; ".join(
+        f"{n}={ops.get_variant(n).describe()}" for n in results))
+    return ok, counts, results
+
+
+def phase_serve(label: str) -> tuple[bool, dict]:
     from repro_torch import configs
+    from repro_torch.kernels import ops
     from repro_torch.launch.serve import measure, prompts_for
     from repro_torch.models import registry
 
@@ -218,9 +367,15 @@ def phase_serve() -> tuple[bool, dict]:
                       slots=s["slots"], max_seq=s["max_seq"],
                       page_size=s["page_size"], device="cuda")
     steps, prefills = m["steps"], s["requests"]
-    want = {"fused_add_rmsnorm": (2 * cfg.n_layers + 1) * (steps + prefills),
+    rms = ops.get_variant("fused_add_rmsnorm")
+    log(f"  {label}: fused_add_rmsnorm {rms.describe()}; silu_and_mul "
+        f"{ops.get_variant('silu_and_mul').describe()}")
+    # a two-pass rmsnorm launches twice a call; the merge is not on the path
+    want = {"fused_add_rmsnorm": (2 if rms.two_pass else 1)
+            * (2 * cfg.n_layers + 1) * (steps + prefills),
             "silu_and_mul": cfg.n_layers * (steps + prefills),
-            "paged_flash_decode": cfg.n_layers * steps}
+            "paged_flash_decode": cfg.n_layers * steps,
+            "merge_attn_states_lse": 0}
     log(f"  {s['requests']} requests, prompt lengths {m['prompt_lens']}, "
         f"max_new_tokens {s['max_new']}, slots {s['slots']}, max_seq "
         f"{s['max_seq']}, page {s['page_size']}")
@@ -262,7 +417,7 @@ def phase_reference() -> bool:
     toks = torch.tensor(rng.integers(0, cfg.vocab, (1, 32)))
     lg, cache_g = registry.prefill(gpu, cfg, toks.cuda(), length=29)
     lc, cache_c = registry.prefill(cpu, cfg, toks, length=29)
-    err = compare(lg.cpu(), lc, torch.float32)
+    err = compare(lg.cpu(), lc)
     log(f"  prefill logits card vs cpu: max_abs={err[0]:.3e} "
         f"{'ok' if err[2] else 'MISMATCH'}")
     ok &= err[2]
@@ -280,8 +435,7 @@ def phase_reference() -> bool:
             page_table=torch.tensor([[1, 2, 3]], **i32))
         return logits.cpu()
 
-    err = compare(decode(gpu, cache_g, "cuda"), decode(cpu, cache_c, "cpu"),
-                  torch.float32)
+    err = compare(decode(gpu, cache_g, "cuda"), decode(cpu, cache_c, "cpu"))
     log(f"  decode logits card vs cpu: max_abs={err[0]:.3e} "
         f"{'ok' if err[2] else 'MISMATCH'}")
     ok &= err[2]
@@ -304,12 +458,14 @@ def main() -> int:
               "on an NVIDIA GPU", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.join(ROOT, "src"))
-    from repro_torch.kernels import _build
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels.registry import get_space
     from repro_torch.launch.serve import card as card_line
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
+    phase_s = {}
     card = card_line()
     log(f"phase 1: environment and build\n  {card}; torch {torch.__version__}"
         f" CUDA {torch.version.cuda}; {torch.cuda.get_device_name(0)}")
@@ -320,21 +476,49 @@ def main() -> int:
     for line in info["log"].splitlines():
         if "registers" in line or "spill" in line:
             log("   " + line.strip())
+    phase_s["build"] = time.perf_counter() - t_start
 
+    t0 = time.perf_counter()
     log("phase 2: kernels against their plain versions on the card")
     rows: dict = {}
     ok2 = phase_kernels(rows)
-    log("phase 3: serve")
-    ok3, counts = phase_serve()
+    phase_s["kernels"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    log("phase 3: tune (the Astra agent loop on the card)")
+    ok3, tune_counts, results = phase_tune()
+    phase_s["tune"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    log("phase 4: serve, with the shipped genomes, then the reintegrated")
+    tuned = {n: ops.get_variant(n) for n in results}
+    ops.set_variants(**{n: get_space(n).shipped for n in results})
+    ok4a, shipped_counts = phase_serve("shipped genomes")
+    ops.set_variants(**tuned)
+    ok4b, serve_counts = phase_serve("reintegrated genomes")
+    phase_s["serve"] = time.perf_counter() - t0
     for name, row in rows.items():
-        row["launches"] = counts[name]
-    log("phase 4: reference on a small input")
-    ok4 = phase_reference()
+        row["launches"] = tune_counts[name] + serve_counts[name]
+        row["launches_by_path"] = {"tune": tune_counts[name],
+                                   "serve_shipped": shipped_counts[name],
+                                   "serve_reintegrated": serve_counts[name]}
+    rows["merge_attn_states_lse"]["note"] = (
+        "not on the serve path (the model inlines its merge); the tune "
+        "phase (the agent loop) drives it")
+    t0 = time.perf_counter()
+    log("phase 5: reference on a small input")
+    ok5 = phase_reference()
+    phase_s["reference"] = time.perf_counter() - t0
+    log("phase seconds: " + ", ".join(f"{k} {v:.1f}"
+                                      for k, v in phase_s.items()))
     log(f"total {time.perf_counter() - t_start:.1f} s")
+    idle = [n for n, r in rows.items() if not r["launches"]]
+    if idle:
+        log(f"FAIL: no launch on the driven paths for {idle}")
     log(json.dumps({"kernels": [rows[n] for n in SOURCES]}))
     log(card)
-    if not (ok2 and ok3 and ok4):
-        log(f"chip_smoke FAILED: kernels {ok2} serve {ok3} reference {ok4}")
+    ok = ok2 and ok3 and ok4a and ok4b and ok5 and not idle
+    if not ok:
+        log(f"chip_smoke FAILED: kernels {ok2} tune {ok3} serve "
+            f"{ok4a}/{ok4b} reference {ok5}")
         return 1
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

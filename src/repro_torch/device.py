@@ -9,6 +9,12 @@ from __future__ import annotations
 
 import torch
 
+# streaming multiprocessors of the H100 SXM: the kernels' launch shapes
+# spread rows over at least this many blocks, and the cost model's waves
+# count in it
+SMS = 132
+MAX_THREADS = 1024                  # per block
+
 
 def resolve_device(device=None) -> torch.device:
     """``None`` means ``cuda``; a CUDA device without a visible GPU raises."""

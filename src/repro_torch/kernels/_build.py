@@ -30,12 +30,16 @@ NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                            "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 # C signatures of the library: name -> argtypes (every function returns int,
 # the CUDA error code of its launch, except the error-string helper)
 SIGNATURES = {
-    "repro_fused_add_rmsnorm": (_P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _I,
-                                _P),
-    "repro_silu_and_mul": (_P, _P, _I, _I, _I, _I, _P),
+    "repro_fused_add_rmsnorm": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _I,
+                                _I, _I, _I, _I, _I, _I, _P),
+    "repro_silu_and_mul": (_P, _P, _P, _I, _I, _L, _I, _I, _I, _I, _I, _I,
+                           _I, _P),
+    "repro_merge_attn_states": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                _I, _I, _I, _P),
     "repro_paged_decode_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                      _I, _I, _I, _F, _I, _I, _P),
 }

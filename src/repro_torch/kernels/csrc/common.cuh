@@ -1,5 +1,6 @@
 // Helpers shared by the port's CUDA kernels: fp32 <-> storage-type
-// conversion, 16-byte vector loads and stores, and a block-wide sum.
+// conversion, 16-byte vector loads and stores, a block-wide sum, and the
+// dispatch of run-time genome flags to template instantiations.
 //
 // Every kernel computes in fp32 and stores in the tensor's own type
 // (float or __nv_bfloat16). Dtype codes passed across the C interface:
@@ -8,7 +9,10 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace repro {
 
@@ -27,6 +31,21 @@ __device__ __forceinline__ float from_f<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);  // round to nearest even, as a dtype cast
+}
+
+// v rounded to T and widened back: one operation "in T" when the math is
+// done in fp32 and every result is rounded, as T arithmetic does.
+template <typename T>
+__device__ __forceinline__ float round_to(float v) {
+  return to_f(from_f<T>(v));
+}
+
+// Calls f(std::true_type{}) or f(std::false_type{}): a run-time genome
+// flag picks one of the kernel's template instantiations, so every
+// combination is compiled into the one library.
+template <typename F>
+inline int with_bool(bool b, F&& f) {
+  return b ? f(std::true_type{}) : f(std::false_type{});
 }
 
 // One 16-byte load of N = 16 / sizeof(T) elements, widened to fp32. The

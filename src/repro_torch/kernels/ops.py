@@ -1,50 +1,66 @@
 """Kernel dispatch for the model layers (the "reintegration" layer).
 
 The model calls these functions, never a kernel module directly, so a
-tuned variant can later drop in for the whole framework. Dispatch follows
-the tensor: a CUDA tensor launches the Hopper kernel (or raises), a CPU
-tensor takes the plain PyTorch version. There is no fallback from one to
+tuned genome drops in for the whole framework. Dispatch follows the
+tensor: a CUDA tensor launches the Hopper kernel (or raises), a CPU tensor
+takes the genome's plain PyTorch version. There is no fallback from one to
 the other.
 
-``set_variants`` / ``get_variant`` keep the process-wide record of tuned
-variants. Each kernel has one variant so far; the genomes and the
-registry that give the record its values come with the agent loop.
+``set_variants`` installs tuned genomes process-wide (what the paper calls
+reintegration); ``get_variant`` reads them back through the kernel
+registry, as the JAX package's ``ops`` does: a kernel with no override
+runs its registered space's shipped genome, and a name with no registered
+space raises KeyError. ``paged_flash_decode`` has no space yet and keeps
+its single form.
 """
 
 from __future__ import annotations
 
 from repro_torch.kernels import flash_decode as _fd
 from repro_torch.kernels import fused_add_rmsnorm as _rms
+from repro_torch.kernels import merge_attn_states as _merge
+from repro_torch.kernels import registry as _registry
 from repro_torch.kernels import silu_and_mul as _silu
-
-KERNELS = ("fused_add_rmsnorm", "silu_and_mul", "paged_flash_decode")
 
 _OVERRIDES: dict[str, object] = {}
 
+_WRAPPERS = {"fused_add_rmsnorm": _rms.fused_add_rmsnorm,
+             "silu_and_mul": _silu.silu_and_mul,
+             "paged_flash_decode": _fd.paged_flash_decode_attention,
+             "merge_attn_states_lse": _merge.merge_attn_states_lse}
+
 
 def set_variants(**kwargs) -> None:
-    """Record tuned variants by kernel name; unknown names raise KeyError."""
+    """Reintegrate tuned genomes by kernel name (paper §3.2
+    post-processing); a name with no registered space raises KeyError."""
     for name, variant in kwargs.items():
-        if name not in KERNELS:
-            raise KeyError(f"unknown kernel {name!r}; have {KERNELS}")
+        _registry.get_space(name)
         _OVERRIDES[name] = variant
 
 
 def get_variant(name: str):
-    """The recorded variant of ``name``, or None for the shipped kernel."""
-    if name not in KERNELS:
-        raise KeyError(f"unknown kernel {name!r}; have {KERNELS}")
-    return _OVERRIDES.get(name)
+    """The installed genome of ``name``, else its space's shipped one."""
+    try:
+        return _OVERRIDES[name]
+    except KeyError:
+        return _registry.get_space(name).shipped
 
 
 def silu_and_mul(x):
     """SwiGLU gate: ``silu(x[..., :d]) * x[..., d:]``."""
-    return _silu.silu_and_mul(x)
+    return _silu.silu_and_mul(x, get_variant("silu_and_mul"))
 
 
 def fused_add_rmsnorm(x, residual, weight, eps: float = 1e-6):
     """Residual add + RMSNorm. Returns ``(y, new_residual)``."""
-    return _rms.fused_add_rmsnorm(x, residual, weight, eps)
+    return _rms.fused_add_rmsnorm(x, residual, weight, eps,
+                                  get_variant("fused_add_rmsnorm"))
+
+
+def merge_attn_states_lse(v_a, s_a, v_b, s_b):
+    """LSE merge of two partial attention states. Returns ``(v, s)``."""
+    return _merge.merge_attn_states_lse(v_a, s_a, v_b, s_b,
+                                        get_variant("merge_attn_states_lse"))
 
 
 def paged_flash_decode_attention(q, k_pages, v_pages, page_table, *,
@@ -56,13 +72,10 @@ def paged_flash_decode_attention(q, k_pages, v_pages, page_table, *,
 
 def launch_counts() -> dict:
     """Kernel launches so far, by kernel name."""
-    return {"fused_add_rmsnorm": _rms.fused_add_rmsnorm.launches,
-            "silu_and_mul": _silu.silu_and_mul.launches,
-            "paged_flash_decode": _fd.paged_flash_decode_attention.launches}
+    return {name: fn.launches for name, fn in _WRAPPERS.items()}
 
 
 def reset_launch_counts() -> None:
     """Set every kernel's launch count to 0."""
-    _rms.fused_add_rmsnorm.launches = 0
-    _silu.silu_and_mul.launches = 0
-    _fd.paged_flash_decode_attention.launches = 0
+    for fn in _WRAPPERS.values():
+        fn.launches = 0

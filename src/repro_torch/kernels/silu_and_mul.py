@@ -1,23 +1,101 @@
-"""SwiGLU gate ``silu(x[..., :d]) * x[..., d:]``: the Hopper kernel and its
-wrapper.
+"""SwiGLU gate ``silu(x[..., :d]) * x[..., d:]`` (paper Kernel 3): the
+Hopper kernel, its genome, its plain per-genome version and its registered
+search space.
 
-The kernel is ``csrc/silu_and_mul.cu`` (it replaces the TPU kernel
-``repro/kernels/silu_and_mul.py::silu_and_mul``); the plain version is
-``ref.silu_and_mul``. A CPU tensor takes the plain version; a CUDA tensor
-launches the kernel or raises.
+The kernel is ``csrc/silu_and_mul.cu``; it replaces the TPU kernel
+``repro/kernels/silu_and_mul.py::silu_and_mul`` (body ``_kernel``). It is
+bound by bytes. The shipped genome reads gate and up in place from the
+one input buffer in fp32 with ``expf`` and a divide. ``fused_split=False``
+copies gate and up out first (two more launches of PyTorch's copy kernel
+and a round trip of x, as the JAX package slices outside its
+``pallas_call``); ``compute_fp32=False`` rounds every operation to the
+input dtype; ``use_reciprocal`` multiplies by ``__frcp_rn``;
+``fast_exp`` takes ``exp2f``. A block is ``block_cols`` threads, each on
+one 16-byte vector of a row at a time, and takes up to ``block_rows``
+rows: fewer when that would leave SMs without a block, so at decode every
+row has its own blocks, as the kernel launched before it had a genome.
+
+A CPU tensor takes ``plain``, the genome's arithmetic in PyTorch; a CUDA
+tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import math
+
+import numpy as np
 import torch
 
+from repro_torch.device import MAX_THREADS, SMS
 from repro_torch.kernels import _build, ref
+from repro_torch.kernels.registry import (KernelSpace, Knob, TestCase,
+                                          register_kernel_space)
+
+F32 = torch.float32
+LOG2E = 1.4426950408889634
 
 
-def silu_and_mul(x: torch.Tensor) -> torch.Tensor:
+@dataclasses.dataclass(frozen=True)
+class SiluMulVariant:
+    """Genome of silu_and_mul (the space the agents search)."""
+    name: str = "baseline"
+    block_rows: int = 16
+    block_cols: int = 256
+    compute_fp32: bool = True
+    use_reciprocal: bool = False
+    fast_exp: bool = False
+    fused_split: bool = False
+
+    def describe(self) -> str:
+        """One line: name and knob values."""
+        return (f"{self.name}: tile=({self.block_rows},{self.block_cols}) "
+                f"fp32={self.compute_fp32} rcp={self.use_reciprocal} "
+                f"exp2={self.fast_exp} fused_split={self.fused_split}")
+
+
+# the paper's baseline: library math and materialised gate/up copies
+BASELINE = SiluMulVariant()
+OPTIMIZED = SiluMulVariant(
+    name="astra_opt", block_rows=32, block_cols=256,
+    compute_fp32=True, use_reciprocal=False, fast_exp=False, fused_split=True,
+)
+
+
+def plain(variant: SiluMulVariant, x):
+    """The genome's arithmetic in plain PyTorch: in fp32, or every
+    operation in x's dtype; ``exp`` or ``exp2``; a divide or a reciprocal
+    and a multiply."""
+    d = x.shape[-1] // 2
+    ct = F32 if variant.compute_fp32 else x.dtype
+    g, u = x[..., :d].to(ct), x[..., d:].to(ct)
+    e = torch.exp2(-g * LOG2E) if variant.fast_exp else torch.exp(-g)
+    den = 1.0 + e
+    if variant.use_reciprocal:
+        out = g * torch.reciprocal(den) * u
+    else:
+        out = g / den * u
+    return out.to(x.dtype)
+
+
+def launch_shape(variant: SiluMulVariant, rows: int, d: int,
+                 vec: int) -> tuple[int, int, int]:
+    """(threads per block, rows per block, column blocks): a thread per
+    16-byte vector of a row, ``block_cols`` threads a block, and at most
+    ``block_rows`` rows a block, fewer when the grid would not cover the
+    132 SMs."""
+    threads = variant.block_cols
+    col_blocks = -(-d // vec // threads)
+    per_block = max(1, min(variant.block_rows, -(-rows * col_blocks // SMS)),
+                    -(-rows // 65535))
+    return threads, per_block, col_blocks
+
+
+def silu_and_mul(x: torch.Tensor,
+                 variant: SiluMulVariant = OPTIMIZED) -> torch.Tensor:
     """``[..., 2d] -> [..., d]``."""
     if x.device.type == "cpu":
-        return ref.silu_and_mul(x)
+        return plain(variant, x)
     if x.device.type != "cuda":
         raise ValueError(f"silu_and_mul runs on cpu or cuda, not {x.device}")
     if x.shape[-1] % 2:
@@ -29,14 +107,110 @@ def silu_and_mul(x: torch.Tensor) -> torch.Tensor:
     rows = out.numel() // d if d else 0
     if rows == 0:
         return out
-    vec = _build.vector_width(d, x, out)
+    x2 = x.reshape(rows, 2 * d)
+    if variant.fused_split:
+        gate, up, stride = x2, x2[:, d:], 2 * d
+    else:
+        gate, up, stride = x2[:, :d].contiguous(), x2[:, d:].contiguous(), d
+    vec = _build.vector_width(d, gate, up, out)
+    threads, per_block, _ = launch_shape(variant, rows, d, vec)
+    if threads > MAX_THREADS:
+        raise ValueError(f"block_cols {variant.block_cols} is the threads of "
+                         f"a block; the card launches at most {MAX_THREADS}")
     lib = _build.library()
-    code = lib.repro_silu_and_mul(x.data_ptr(), out.data_ptr(), rows, d,
-                                  _build.dtype_code(x), vec,
-                                  _build.stream_ptr(x.device))
+    code = lib.repro_silu_and_mul(
+        gate.data_ptr(), up.data_ptr(), out.data_ptr(), rows, d, stride,
+        _build.dtype_code(x), vec, threads, per_block,
+        int(variant.compute_fp32), int(variant.use_reciprocal),
+        int(variant.fast_exp), _build.stream_ptr(x.device))
     _build.check(lib, code, "silu_and_mul")
     silu_and_mul.launches += 1
     return out
 
 
 silu_and_mul.launches = 0
+
+
+def cost(variant: SiluMulVariant, *, rows: int, d: int, dtype):
+    """Analytic H100 cost of this genome on a ``[rows, 2d]`` input."""
+    from repro_torch.core import costmodel as cm
+
+    item = dtype.itemsize
+    vec = cm.vector_elems(d, item)
+    threads, per_block, col_blocks = launch_shape(variant, rows, d, vec)
+    n_el = rows * d
+    names = ["mul", "add"]                          # x up, 1 + e
+    names += ["exp_fast", "mul"] if variant.fast_exp else ["exp"]
+    names += ["rcp", "mul"] if variant.use_reciprocal else ["div"]
+    if not variant.compute_fp32:
+        names += ["cast", "cast"] * len(names)      # a rounding per op
+    elif item < 4:
+        names += ["cast"] * 3
+    alu, sfu = cm.ops(*names, n=n_el)
+    main = cm.Cost(
+        dram_bytes=3 * n_el * item, alu_ops=alu, sfu_ops=sfu,
+        blocks=math.ceil(rows / per_block) * col_blocks,
+        threads=threads,
+        waste_bytes=cm.sector_waste(rows, d * item, 3))
+    if variant.fused_split:
+        main.validate()
+        return main
+    # two copies of half of x: read and write rows * d each
+    copy = cm.Cost(dram_bytes=2 * n_el * item,
+                   blocks=math.ceil(n_el * item / (16 * 256)), threads=256)
+    total = cm.combine([copy, copy, main])
+    total.validate()
+    return total
+
+
+reference = ref.silu_and_mul
+
+
+# paper Table 4 shapes, [batch, hidden] (LLaMA-7B/13B/70B dims), plus a
+# ragged one
+SUITE_SHAPES = ({"batch": 16, "hidden": 4096}, {"batch": 32, "hidden": 5120},
+                {"batch": 64, "hidden": 8192}, {"batch": 16, "hidden": 12288},
+                {"batch": 17, "hidden": 11008})
+
+
+def make_inputs(shape: dict, *, dtype=F32, seed: int = 0,
+                device="cpu") -> TestCase:
+    """x normal x 2, drawn in fp32 with numpy and cast to ``dtype``."""
+    b, h = shape["batch"], shape["hidden"]
+    x = np.random.default_rng(seed).standard_normal((b, 2 * h),
+                                                    dtype=np.float32) * 2.0
+    return TestCase(f"[{b},{h}]",
+                    (torch.from_numpy(x).to(device=device, dtype=dtype),),
+                    {"rows": b, "d": h, "dtype": dtype})
+
+
+def _run(variant, x):
+    return silu_and_mul(x, variant)
+
+
+@register_kernel_space
+def _space() -> KernelSpace:
+    return KernelSpace(
+        name="silu_and_mul",
+        baseline=BASELINE,
+        default=OPTIMIZED,
+        run=_run,
+        oracle=reference,
+        cost=cost,
+        knobs=(
+            Knob("fused_split", "bool", attacks=("memory", "overhead"),
+                 target=True,
+                 note="index gate/up in place; kills the two copies "
+                      "(a round trip of x and two launches)"),
+            Knob("block_rows", "pow2", 8, 1024, attacks=("overhead",),
+                 note="most rows a block takes"),
+            Knob("block_cols", "pow2", 128, 2048, attacks=("overhead",),
+                 note="threads a block, one 16-byte vector each"),
+            Knob("use_reciprocal", "bool", attacks=("compute",), target=True,
+                 note="__frcp_rn and a multiply instead of a divide"),
+            Knob("fast_exp", "bool", attacks=("compute",), target=True,
+                 note="exp2f of a scaled argument instead of expf"),
+        ),
+        suite_shapes=SUITE_SHAPES,
+        make_inputs=make_inputs,
+    )

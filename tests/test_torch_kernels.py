@@ -2,10 +2,11 @@
 
 The same numpy inputs (made from a seed) go to the JAX oracle in
 ``repro.kernels.ref`` and to its port in ``repro_torch.kernels.ref``; the
-three ported kernels' wrappers (which take their plain versions for CPU
+ported kernels' wrappers (which take their genome's plain version for CPU
 tensors) are also held against the JAX Pallas kernels run in interpret
-mode. Tolerances are the JAX package's (``core/agents.py``): fp32 rtol
-1e-5 / atol 1e-4, bf16 3e-2 / 3e-2.
+mode, genome by genome. Tolerances are the JAX package's
+(``core/agents.py``): fp32 rtol 1e-5 / atol 1e-4, bf16 3e-2 / 3e-2; a
+``-inf`` score must match exactly.
 
 Also here: the guards that keep the port apart from JAX and off the CPU
 unless asked (no ``jax`` / ``repro`` import under ``src/repro_torch`` or
@@ -14,6 +15,7 @@ points raise without a GPU; ``chip_smoke.py`` fails without one).
 """
 
 import ast
+import dataclasses
 import functools
 import os
 import subprocess
@@ -26,9 +28,14 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels import fused_add_rmsnorm as jrms
+from repro.kernels import merge_attn_states as jmerge
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
-from repro_torch.kernels import _build, ops, ref
+from repro.kernels import silu_and_mul as jsilu
+from repro_torch.kernels import _build, ops, ref, registry
+from repro_torch.kernels import fused_add_rmsnorm, merge_attn_states
+from repro_torch.kernels import silu_and_mul
 
 REPO = Path(__file__).resolve().parents[1]
 DTYPES = ["float32", "bfloat16"]
@@ -202,6 +209,129 @@ def test_paged_decode_matches_pallas(hq, hkv, dtype):
 
 
 # --------------------------------------------------------------------------
+# genome by genome: the plain per-genome versions against the Pallas
+# kernels of the same genome (interpret mode)
+# --------------------------------------------------------------------------
+
+def jax_genome(module, variant):
+    """The JAX package's genome with the same field values."""
+    cls = getattr(module, type(variant).__name__)
+    return cls(**dataclasses.asdict(variant))
+
+
+MERGE_GENOMES = {
+    "baseline": merge_attn_states.BASELINE,
+    "optimized": merge_attn_states.OPTIMIZED,
+    "optimized_unfused_s": dataclasses.replace(merge_attn_states.OPTIMIZED,
+                                               fuse_s_out=False),
+}
+
+
+def merge_case(s, h, d, seed):
+    """v normal, scores normal x 8 with 10% of s_b at -inf, plus rows with
+    one side empty and rows with both sides empty."""
+    rng = np.random.default_rng(seed)
+    va, vb = rng.standard_normal((2, s, h, d))
+    sa, sb = rng.standard_normal((2, s, h)) * 8
+    sb[rng.random((s, h)) < 0.1] = -np.inf
+    sa[0, :2] = -np.inf                     # one side empty
+    sa[1, 0] = sb[1, 0] = -np.inf           # both empty: V = 0, S = -inf
+    sa[2, h - 1] = sb[2, h - 1] = -np.inf
+    return va, sa, vb, sb
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(48, 7, 64), (17, 3, 128)])
+@pytest.mark.parametrize("genome", sorted(MERGE_GENOMES))
+def test_merge_genome_matches_pallas(genome, shape, dtype):
+    variant = MERGE_GENOMES[genome]
+    va, sa, vb, sb = merge_case(*shape, seed=shape[0])
+    (vaj, vat), (vbj, vbt) = both(va, dtype), both(vb, dtype)
+    (saj, sat), (sbj, sbt) = both(sa, "float32"), both(sb, "float32")
+    vj, sj = jit(jmerge.merge_attn_states_lse,
+                 variant=jax_genome(jmerge, variant),
+                 interpret=True)(vaj, saj, vbj, sbj)
+    vt, st = merge_attn_states.merge_attn_states_lse(vat, sat, vbt, sbt,
+                                                     variant)
+    assert vt.dtype == TORCH[dtype] and st.dtype == torch.float32
+    assert vt.shape == va.shape and st.shape == sa.shape
+    close(vj, vt, dtype)
+    sj = np.asarray(sj)
+    np.testing.assert_array_equal(np.isneginf(sj), torch.isneginf(st).numpy())
+    assert np.isneginf(st[1, 0]) and (vt[1, 0] == 0).all()
+    fin = np.isfinite(sj)
+    np.testing.assert_allclose(sj[fin], st.numpy()[fin], **TOL["float32"])
+    assert torch.isfinite(vt.float()).all()
+
+
+RMS_GENOMES = {
+    "baseline": (fused_add_rmsnorm.BASELINE, DTYPES),
+    "optimized": (fused_add_rmsnorm.OPTIMIZED, DTYPES),
+    "two_pass_rsqrt": (fused_add_rmsnorm.RmsNormVariant(
+        name="two_pass_rsqrt", two_pass=True, use_rsqrt=True),
+        ["bfloat16"]),
+}
+SILU_GENOMES = {
+    "baseline": (silu_and_mul.BASELINE, DTYPES),
+    "optimized": (silu_and_mul.OPTIMIZED, DTYPES),
+    "bf16_fast_math": (silu_and_mul.SiluMulVariant(
+        name="bf16_fast_math", compute_fp32=False, use_reciprocal=True,
+        fast_exp=True, fused_split=True), ["bfloat16"]),
+}
+
+
+@pytest.mark.parametrize("genome,dtype", [
+    (g, dt) for g, (_, dts) in sorted(RMS_GENOMES.items()) for dt in dts])
+def test_fused_add_rmsnorm_genome_matches_pallas(genome, dtype):
+    variant = RMS_GENOMES[genome][0]
+    rng = np.random.default_rng(7)
+    x, r = rng.standard_normal((2, 33, 256))
+    w = 1.0 + 0.1 * rng.standard_normal(256)
+    (xj, xt), (rj, rt), (wj, wt) = both(x, dtype), both(r, dtype), \
+        both(w, "float32")
+    yj, nj = jit(jrms.fused_add_rmsnorm, eps=1e-6,
+                 variant=jax_genome(jrms, variant),
+                 interpret=True)(xj, rj, wj)
+    yt, nt = fused_add_rmsnorm.fused_add_rmsnorm(xt, rt, wt, 1e-6, variant)
+    close(yj, yt, dtype)
+    close(nj, nt, dtype)
+
+
+@pytest.mark.parametrize("genome,dtype", [
+    (g, dt) for g, (_, dts) in sorted(SILU_GENOMES.items()) for dt in dts])
+def test_silu_and_mul_genome_matches_pallas(genome, dtype):
+    variant = SILU_GENOMES[genome][0]
+    x = np.random.default_rng(8).standard_normal((17, 2 * 384)) * 3
+    xj, xt = both(x, dtype)
+    close(jit(jsilu.silu_and_mul, variant=jax_genome(jsilu, variant),
+              interpret=True)(xj),
+          silu_and_mul.silu_and_mul(xt, variant), dtype)
+
+
+def test_plain_genomes_keep_their_arithmetic_order():
+    """The plain versions differ where the genome says the arithmetic
+    does: the two-pass form normalises the rounded r', bf16 compute
+    rounds every operation."""
+    rng = np.random.default_rng(9)
+    x, r = (torch.tensor(a, dtype=torch.bfloat16)
+            for a in rng.standard_normal((2, 4, 64)))
+    w = torch.ones(64)
+    one = fused_add_rmsnorm.plain(fused_add_rmsnorm.OPTIMIZED, x, r, w)[0]
+    two = fused_add_rmsnorm.plain(
+        dataclasses.replace(fused_add_rmsnorm.OPTIMIZED, two_pass=True),
+        x, r, w)[0]
+    assert not torch.equal(one, two)
+    torch.testing.assert_close(one.float(), two.float(), rtol=3e-2,
+                               atol=3e-2)
+    xs = torch.tensor(rng.standard_normal((4, 128)) * 3,
+                      dtype=torch.bfloat16)
+    f32 = silu_and_mul.plain(silu_and_mul.OPTIMIZED, xs)
+    b16 = silu_and_mul.plain(dataclasses.replace(
+        silu_and_mul.OPTIMIZED, compute_fp32=False), xs)
+    assert not torch.equal(f32, b16)
+
+
+# --------------------------------------------------------------------------
 # guards
 # --------------------------------------------------------------------------
 
@@ -239,6 +369,14 @@ def test_cpu_tensors_never_touch_the_kernel_library(monkeypatch):
     t = [torch.tensor(a, dtype=torch.float32) for a in (q, k, v)]
     ops.paged_flash_decode_attention(*t, torch.from_numpy(table),
                                      kv_len=torch.from_numpy(lens))
+    v, s = torch.randn(3, 2, 64), torch.randn(3, 2)
+    ops.merge_attn_states_lse(v, s, v, s)
+    for name in registry.registered_kernels():
+        space = registry.get_space(name)
+        case = space.make_inputs(space.suite_shapes[-1], seed=0,
+                                 device="cpu")
+        for genome in (space.baseline, space.shipped):
+            space.run(genome, *case.args)
     assert ops.launch_counts() == before
 
 
@@ -250,12 +388,26 @@ def test_kernels_refuse_other_devices():
         ops.fused_add_rmsnorm(x, x, torch.empty(8, device="meta"))
 
 
-def test_variant_record_names_known_kernels():
-    assert ops.get_variant("silu_and_mul") is None
-    with pytest.raises(KeyError):
-        ops.set_variants(no_such_kernel="x")
-    with pytest.raises(KeyError):
-        ops.get_variant("no_such_kernel")
+def test_variant_record_names_known_kernels(monkeypatch):
+    """``ops`` reads the registry, as the JAX ``ops`` does: with no
+    override a kernel runs its space's shipped genome, an installed genome
+    is read back, and a name with no registered space raises KeyError
+    (``paged_flash_decode`` has none until its space is ported)."""
+    monkeypatch.setattr(ops, "_OVERRIDES", {})
+    names = registry.registered_kernels()
+    assert names == ("fused_add_rmsnorm", "merge_attn_states_lse",
+                     "silu_and_mul")
+    for name in names:
+        assert ops.get_variant(name) == registry.get_space(name).shipped
+        assert ops.get_variant(name).name == "astra_opt"
+    ops.set_variants(silu_and_mul=silu_and_mul.BASELINE)
+    assert ops.get_variant("silu_and_mul") == silu_and_mul.BASELINE
+    for bad in ("no_such_kernel", "paged_flash_decode"):
+        with pytest.raises(KeyError):
+            ops.set_variants(**{bad: "x"})
+        with pytest.raises(KeyError):
+            ops.get_variant(bad)
+    assert "no_such_kernel" not in ops._OVERRIDES
 
 
 def test_chip_smoke_fails_without_a_gpu_or_the_repo(tmp_path):

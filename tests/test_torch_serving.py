@@ -223,7 +223,8 @@ def test_serve_command_runs_the_reduced_config_on_cpu():
     assert out["all_done"] and out["requests"] == 5
     assert out["readbacks"] == out["steps"] > 0
     assert out["launches"] == {"fused_add_rmsnorm": 0, "silu_and_mul": 0,
-                               "paged_flash_decode": 0}
+                               "paged_flash_decode": 0,
+                               "merge_attn_states_lse": 0}
 
 
 def test_seeded_init_is_reproducible_and_shaped():
