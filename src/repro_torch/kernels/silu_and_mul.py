@@ -13,7 +13,7 @@ input dtype; ``use_reciprocal`` multiplies by ``__frcp_rn``;
 ``fast_exp`` takes ``exp2f``. A block is ``block_cols`` threads, each on
 one 16-byte vector of a row at a time, and takes up to ``block_rows``
 rows: fewer when that would leave SMs without a block, so at decode every
-row has its own blocks, as the kernel launched before it had a genome.
+row has its own blocks.
 
 A CPU tensor takes ``plain``, the genome's arithmetic in PyTorch; a CUDA
 tensor launches the kernel or raises.

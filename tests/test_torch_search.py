@@ -604,8 +604,8 @@ def test_entry_points_need_a_gpu_unless_told_cpu(monkeypatch):
 # ------------------------------------------------------ the H100 model
 
 def test_cost_model_is_calibrated_on_the_decode_rmsnorm():
-    """The shipped rmsnorm at 8 x 896 bf16 took 2.01 us on the H100: one
-    block per row, as the kernel launched before it had a genome."""
+    """The shipped rmsnorm at 8 x 896 bf16 took 2.01 us on the H100, one
+    block of 128 threads per row."""
     c = fused_add_rmsnorm.cost(fused_add_rmsnorm.OPTIMIZED, rows=8, d=896,
                                dtype=torch.bfloat16)
     assert c.latency_s * 1e6 == pytest.approx(2.01, abs=0.01)
