@@ -18,10 +18,11 @@ asked for.
   the planner's signals come from the cost model. The default follows the
   suite: CUDA tensors are timed, CPU tensors are modelled.
 
-Timings never overlap: the evaluator may run candidates on a thread pool,
-so every timed measurement, and every validation run on the card (which
-would launch onto the same stream between a timing's events), holds the
-one process-wide ``DEVICE_LOCK``.
+The agents launch onto the card's one stream, so nothing else may run on
+the card while ``time_launches`` times. Every timing holds the one
+process-wide ``DEVICE_LOCK``, so two timings never overlap, and the
+evaluator runs a suite on the card one genome at a time (its thread pool
+serves CPU suites only), so no validation or oracle lands inside one.
 """
 
 from __future__ import annotations
@@ -39,7 +40,7 @@ from repro_torch.core import costmodel
 from repro_torch.core.variants import KernelSpace, TestCase, make_inputs
 from repro_torch.device import resolve_device
 
-DEVICE_LOCK = threading.RLock()
+DEVICE_LOCK = threading.Lock()    # held by every timing on the card
 WARMUPS = 20
 FLUSH_BYTES = 64 * 2**20      # > the H100's 50 MB L2
 HOST_S_PER_REP = 30e-6        # host time to queue a rep's flush and events
@@ -78,7 +79,8 @@ class Suggestion:
     rationale: str
 
 
-def _on_card(tests: Sequence[TestCase]) -> bool:
+def on_card(tests: Sequence[TestCase]) -> bool:
+    """Whether any test's inputs lie on a CUDA device."""
     return any(isinstance(a, torch.Tensor) and a.device.type == "cuda"
                for t in tests for a in t.args)
 
@@ -122,11 +124,7 @@ class TestingAgent:
         worst = 0.0
         for i, t in enumerate(tests):
             rtol, atol = _tolerance(t.shape_info["dtype"])
-            if _on_card([t]):
-                with DEVICE_LOCK:
-                    got = space.run(variant, *t.args)
-            else:
-                got = space.run(variant, *t.args)
+            got = space.run(variant, *t.args)
             want = space.oracle(*t.args) if oracle is None else oracle[i]
             flat_g = got if isinstance(got, tuple) else (got,)
             flat_w = want if isinstance(want, tuple) else (want,)
@@ -171,7 +169,8 @@ def time_launches(fn, reps: int, *, device=None) -> list[float]:
     inputs from L2. Ahead of all of them one spin kernel keeps the card
     busy for longer than the host takes to queue every rep (sized from the
     warm-ups' host time), so no host time falls between a start and an end
-    event. Holds ``DEVICE_LOCK`` throughout."""
+    event. Holds ``DEVICE_LOCK`` throughout; nothing else may launch on
+    the card meanwhile."""
     dev = resolve_device(device)
     with DEVICE_LOCK:
         flush = _flush_buffer(dev)
@@ -214,8 +213,8 @@ class ProfilingAgent:
                 tests: Sequence[TestCase]) -> Profile:
         """The genome's Profile over ``tests``: modelled, or timed when
         the backend (by default: the suite's device) is the card."""
-        backend = self.backend or ("cuda" if _on_card(tests) else "analytic")
-        if backend == "cuda" and not _on_card(tests):
+        backend = self.backend or ("cuda" if on_card(tests) else "analytic")
+        if backend == "cuda" and not on_card(tests):
             raise ValueError("the cuda profiling backend needs a suite on "
                              "the card")
         rows, costs = [], []

@@ -34,7 +34,8 @@ from __future__ import annotations
 import dataclasses
 import math
 
-from repro_torch.device import MAX_THREADS, SMS
+from repro_torch.device import (MAX_BLOCKS_PER_SM, MAX_THREADS,
+                                MAX_THREADS_PER_SM, SMS)
 
 # --- H100 SXM ---------------------------------------------------------------
 CLOCK_HZ = 1.98e9                  # boost clock
@@ -47,8 +48,6 @@ SMEM_PER_BLOCK = 232_448           # 227 KB
 SMEM_PER_SM = 233_472              # 228 KB
 REGS_PER_SM = 65_536
 REGS = 32                          # per thread, what ptxas reports (20-52)
-MAX_THREADS_PER_SM = 2048
-MAX_BLOCKS_PER_SM = 32
 SECTOR = 32                        # bytes per device-memory sector
 LAUNCH_S = 1.935e-6                # per launch (calibrated, see above)
 WAVE_S = 0.1e-6                    # per wave of blocks after the first

@@ -9,11 +9,19 @@ from __future__ import annotations
 
 import torch
 
-# streaming multiprocessors of the H100 SXM: the kernels' launch shapes
-# spread rows over at least this many blocks, and the cost model's waves
-# count in it
+# streaming multiprocessors of the H100 SXM, and what one SM holds at once
 SMS = 132
 MAX_THREADS = 1024                  # per block
+MAX_THREADS_PER_SM = 2048
+MAX_BLOCKS_PER_SM = 32
+
+
+def resident_blocks(threads: int) -> int:
+    """Blocks of ``threads`` threads the card holds at once (its thread and
+    block limits per SM): a grid up to this size runs in one wave. The
+    kernels give each row its own block up to this size, and stack rows
+    in a block only past it."""
+    return SMS * max(1, min(MAX_BLOCKS_PER_SM, MAX_THREADS_PER_SM // threads))
 
 
 def resolve_device(device=None) -> torch.device:

@@ -15,8 +15,9 @@
 //
 // Design: a block of `groups` row groups of `tpr` threads (a multiple of
 // 32) takes up to block_rows consecutive rows, `groups` at a time; with
-// one row per block (the wrapper's choice whenever rows <= 132, so at
-// every decode step) the whole block takes its row. Each thread reads x
+// one row per block (the wrapper's choice while one-row blocks fit the
+// card in one wave, so at every decode and prefill step of the served
+// model) the whole block takes its row. Each thread reads x
 // and r with 16-byte vector loads (8 bf16 or 4 fp32) when the width and
 // pointers allow; the sum of squares is reduced with warp shuffles, then
 // across the warps through shared memory.

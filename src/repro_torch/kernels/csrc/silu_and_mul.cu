@@ -10,7 +10,7 @@
 // (256 rows) it moves ~7.5 MB.
 //
 // Design: elementwise. A block of `threads` threads walks its rows (up to
-// block_rows, fewer when that would leave SMs idle: one at decode) and,
+// block_rows; one while the grid fits the card in one wave) and,
 // in each, its thread's 16-byte vectors of columns (8 bf16 or 4 fp32) when
 // d and the pointers allow, else single elements. Gate and up are read
 // through their own pointers and a row stride: in place from the one

@@ -10,8 +10,12 @@ reduction and the normalisation. ``two_pass`` writes ``r'`` and a per-row
 sum of squares, then a second launch re-reads the rounded ``r'``;
 ``use_rsqrt`` picks ``rsqrtf`` over ``1 / sqrtf``; ``accum_fp32=False``
 rounds the add to the input dtype first. ``block_rows`` caps the rows
-one block takes: the wrapper never spreads fewer than ``min(rows, 132)``
-blocks, so at decode every row has its own block.
+one block takes: the wrapper gives each row its own block while the grid
+fits the card in one wave (2,112 rows of 896 in bf16; more rows a block
+read slower at 256 rows), and stacks rows only past that. At every suite
+shape that leaves at most 4 rows a block, below the knob's lowest value,
+8, so ``block_rows`` changes nothing there; ``launch_key`` tells the
+evaluator so.
 
 A CPU tensor takes ``plain``, the genome's arithmetic in PyTorch; a CUDA
 tensor launches the kernel or raises.
@@ -25,7 +29,7 @@ import math
 import numpy as np
 import torch
 
-from repro_torch.device import SMS
+from repro_torch.device import resident_blocks
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels.registry import (KernelSpace, Knob, TestCase,
                                           register_kernel_space)
@@ -82,13 +86,23 @@ def launch_shape(block_rows: int, rows: int, d: int,
 
     A row gets one 16-byte vector per thread in whole warps, up to 1,024
     threads; a block stacks as many rows as fit in 1,024 threads; it takes
-    at most ``block_rows`` rows, and fewer when that would leave SMs
-    without a block."""
+    one row while one-row blocks fit the card in one wave, else as few
+    rows as keep the grid to that wave, at most ``block_rows``."""
     n_vec = -(-d // vec)
     tpr = min(1024, -(-n_vec // 32) * 32)
-    per_block = max(1, min(block_rows, -(-rows // SMS)))
+    per_block = max(1, min(block_rows, -(-rows // resident_blocks(tpr))))
     groups = max(1, min(per_block, 1024 // tpr))
     return tpr, groups, per_block
+
+
+def launch_key(variant: RmsNormVariant, *, rows: int, d: int, dtype):
+    """What the wrapper launches for this genome on ``[rows, d]``: the
+    launch shape and the template flags."""
+    from repro_torch.core import costmodel as cm
+
+    vec = cm.vector_elems(d, dtype.itemsize)
+    return (launch_shape(variant.block_rows, rows, d, vec), variant.two_pass,
+            variant.use_rsqrt, variant.accum_fp32)
 
 
 def fused_add_rmsnorm(x: torch.Tensor, residual: torch.Tensor,
@@ -227,4 +241,5 @@ def _space() -> KernelSpace:
         ),
         suite_shapes=SUITE_SHAPES,
         make_inputs=make_inputs,
+        launch_key=launch_key,
     )

@@ -70,6 +70,10 @@ class KernelSpace:
     make_inputs: Callable[..., TestCase] | None = None
     # the shipped tuned variant (the ``ops`` default); ``baseline`` if None
     default: Any = None
+    # launch_key(variant, **shape_info): what the genome launches on one
+    # test (launch shape and template flags); genomes with equal keys on
+    # every test share one evaluation. None: every genome is distinct
+    launch_key: Callable[..., Any] | None = None
 
     def mutate(self, variant, knob: Knob, value) -> Any:
         """``variant`` with one knob moved; the name records the move."""

@@ -11,9 +11,12 @@ and a round trip of x, as the JAX package slices outside its
 ``pallas_call``); ``compute_fp32=False`` rounds every operation to the
 input dtype; ``use_reciprocal`` multiplies by ``__frcp_rn``;
 ``fast_exp`` takes ``exp2f``. A block is ``block_cols`` threads, each on
-one 16-byte vector of a row at a time, and takes up to ``block_rows``
-rows: fewer when that would leave SMs without a block, so at decode every
-row has its own blocks.
+one 16-byte vector of a row at a time, and takes one row while the grid
+fits the card in one wave (more rows a block read slower), else as few
+rows as keep it to that wave, at most ``block_rows``. At every suite
+shape that is one row a block, below the knob's lowest value, 8, so
+``block_rows`` changes nothing there; ``launch_key`` tells the evaluator
+so.
 
 A CPU tensor takes ``plain``, the genome's arithmetic in PyTorch; a CUDA
 tensor launches the kernel or raises.
@@ -27,7 +30,7 @@ import math
 import numpy as np
 import torch
 
-from repro_torch.device import MAX_THREADS, SMS
+from repro_torch.device import MAX_THREADS, resident_blocks
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels.registry import (KernelSpace, Knob, TestCase,
                                           register_kernel_space)
@@ -81,14 +84,26 @@ def plain(variant: SiluMulVariant, x):
 def launch_shape(variant: SiluMulVariant, rows: int, d: int,
                  vec: int) -> tuple[int, int, int]:
     """(threads per block, rows per block, column blocks): a thread per
-    16-byte vector of a row, ``block_cols`` threads a block, and at most
-    ``block_rows`` rows a block, fewer when the grid would not cover the
-    132 SMs."""
+    16-byte vector of a row, ``block_cols`` threads a block, and one row a
+    block while the grid fits the card in one wave, else as few rows as
+    keep it to that wave, at most ``block_rows`` (and at most 65,535 row
+    blocks)."""
     threads = variant.block_cols
     col_blocks = -(-d // vec // threads)
-    per_block = max(1, min(variant.block_rows, -(-rows * col_blocks // SMS)),
+    wave = resident_blocks(min(threads, MAX_THREADS))
+    per_block = max(1, min(variant.block_rows, -(-rows * col_blocks // wave)),
                     -(-rows // 65535))
     return threads, per_block, col_blocks
+
+
+def launch_key(variant: SiluMulVariant, *, rows: int, d: int, dtype):
+    """What the wrapper launches for this genome on ``[rows, 2d]``: the
+    launch shape, the split copies or not, and the template flags."""
+    from repro_torch.core import costmodel as cm
+
+    vec = cm.vector_elems(d, dtype.itemsize)
+    return (launch_shape(variant, rows, d, vec), variant.fused_split,
+            variant.compute_fp32, variant.use_reciprocal, variant.fast_exp)
 
 
 def silu_and_mul(x: torch.Tensor,
@@ -213,4 +228,5 @@ def _space() -> KernelSpace:
         ),
         suite_shapes=SUITE_SHAPES,
         make_inputs=make_inputs,
+        launch_key=launch_key,
     )

@@ -4,9 +4,12 @@ persistent (the counterpart of ``repro/search/cache.py``).
 Each evaluation is keyed by ``(kernel, genome digest, suite digest)``, so
 a repeated genome (every revert is one) is a dict hit: validation and
 profiling each run at most once per unique genome per suite, an invariant
-``max_evals_per_genome`` exposes. The tiered evaluator computes an entry
-under its per-key lock, so racing threads asking for one genome get one
-computation.
+``max_evals_per_genome`` exposes. A space that says what a genome launches
+(``KernelSpace.launch_key``) is keyed by that instead of the knobs, so a
+move that launches the same code (a tile size the wrapper clamps away) is
+a hit, not a fresh timing of the same launch. The tiered evaluator
+computes an entry under its per-key lock, so racing threads asking for
+one genome get one computation.
 
 Entries may be unvalidated (a baseline is correct by construction, so
 strategies profile it without validating it); a later request that needs
@@ -34,7 +37,8 @@ from collections import Counter
 
 import torch
 
-from repro_torch.search.types import EvalResult, genome_digest, suite_digest
+from repro_torch.search.types import (EvalResult, genome_digest,
+                                      launch_digest, suite_digest)
 
 _SALT_LOCK = threading.Lock()
 _SALT: str | None = None
@@ -136,10 +140,13 @@ class EvalCache:
             self._load_persistent()
 
     def key(self, kernel: str, variant, tests=None, *,
-            tests_digest: str | None = None) -> tuple:
-        """(kernel, genome digest, suite digest)."""
+            tests_digest: str | None = None, launch_key=None) -> tuple:
+        """(kernel, genome digest, suite digest); with ``launch_key`` the
+        genome is digested by what it launches on each of ``tests``."""
         sd = tests_digest if tests_digest is not None else suite_digest(tests)
-        return (kernel, genome_digest(variant), sd)
+        gd = genome_digest(variant) if launch_key is None \
+            else launch_digest(variant, tests, launch_key)
+        return (kernel, gd, sd)
 
     # -- concurrency primitives (shared with the tiered evaluator) ----------
 

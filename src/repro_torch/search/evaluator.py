@@ -22,8 +22,9 @@ computed once per (kernel, suite) through the registry memo.
 on completion order: screening thresholds and smoke order are frozen at
 batch start, per-key locks in the ``EvalCache`` evaluate each unique
 genome once, and the best-latency bookkeeping is replayed in input order.
-On the card, timing and validation hold the agents' ``DEVICE_LOCK``, so
-concurrent candidates never overlap a timed region.
+A suite on the card is evaluated one genome at a time: every launch goes
+to one stream, so another thread's validation or oracle would land
+between a timing's events.
 
 ``TieredEvaluator(screen=False, smoke=False, share_oracle=False)`` is the
 sequential reference: the same verdicts, metered by the same counters.
@@ -36,6 +37,7 @@ import threading
 from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 
+from repro_torch.core.agents import on_card
 from repro_torch.search.types import EvalResult, suite_digest
 
 _UNSET = object()                   # "no frozen snapshot": live bookkeeping
@@ -82,7 +84,8 @@ class TieredEvaluator:
                  _frozen=_UNSET) -> EvalResult:
         """Tiered, cached evaluation of one genome (thread-safe)."""
         sd = tests_digest if tests_digest is not None else suite_digest(tests)
-        k = cache.key(space.name, variant, tests, tests_digest=sd)
+        k = cache.key(space.name, variant, tests, tests_digest=sd,
+                      launch_key=space.launch_key)
         with cache.key_lock(k):
             result = cache.try_hit(k, validate=validate)
             if result is None:
@@ -110,9 +113,9 @@ class TieredEvaluator:
                       cache, validate: bool = True,
                       tests_digest: str | None = None,
                       workers: int = 1) -> list[EvalResult]:
-        """Evaluate a batch of genomes, concurrently when ``workers > 1``;
-        results align with ``variants`` and do not depend on thread
-        completion order."""
+        """Evaluate a batch of genomes, concurrently when ``workers > 1``
+        and the suite is on the CPU; results align with ``variants`` and do
+        not depend on thread completion order."""
         if not variants:
             return []
         sd = tests_digest if tests_digest is not None else suite_digest(tests)
@@ -127,7 +130,7 @@ class TieredEvaluator:
                                  validate=validate, tests_digest=sd,
                                  _frozen=frozen)
 
-        if workers > 1 and len(variants) > 1:
+        if workers > 1 and len(variants) > 1 and not on_card(tests):
             with ThreadPoolExecutor(
                     max_workers=min(workers, len(variants))) as pool:
                 results = list(pool.map(one, variants))

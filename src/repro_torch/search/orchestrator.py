@@ -4,8 +4,9 @@ the tiered evaluator into one ``optimize()`` entry point.
 
 ``strategy`` selects ``"greedy"`` (the default: Algorithm 1), ``"beam"``,
 ``"population"`` or any ``SearchStrategy`` instance; ``workers`` bounds
-how many candidates the evaluator runs at once. Cache hits, wall-clock and
-the evaluator's stage counters go into ``Log.meta``.
+how many candidates the evaluator runs at once on the CPU (on the card it
+runs one at a time). Cache hits, wall-clock and the evaluator's stage
+counters go into ``Log.meta``.
 
 The suite lives on ``device``: the card unless ``device="cpu"`` is asked
 for, where the plain per-genome versions run and the profiling agent

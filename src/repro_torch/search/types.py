@@ -9,6 +9,9 @@ the profiling agent's ``Profile``.
 Genomes are content-addressed: ``genome_digest`` hashes the knob values
 and ignores the cosmetic ``name`` field (which records the last move, not
 the genome), so two paths to the same knob settings share one evaluation.
+Where a space says what a genome launches on each test (its
+``launch_key``), ``launch_digest`` hashes that instead, so genomes whose
+knobs differ but launch the same code share one evaluation too.
 """
 
 from __future__ import annotations
@@ -27,6 +30,14 @@ def genome_key(variant) -> tuple:
 def genome_digest(variant) -> str:
     """Stable content hash of a genome (16 hex chars)."""
     payload = repr((type(variant).__name__,) + genome_key(variant))
+    return hashlib.sha256(payload.encode()).hexdigest()[:16]
+
+
+def launch_digest(variant, tests: Sequence, launch_key) -> str:
+    """Stable hash (16 hex chars) of what ``variant`` launches on each of
+    ``tests``: ``launch_key(variant, **shape_info)`` per test."""
+    payload = repr((type(variant).__name__,) + tuple(
+        launch_key(variant, **t.shape_info) for t in tests))
     return hashlib.sha256(payload.encode()).hexdigest()[:16]
 
 

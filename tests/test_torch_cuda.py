@@ -206,7 +206,7 @@ def test_merge_both_sides_empty_gives_zero_and_neg_inf(dev):
         assert (out == 0).all() and torch.isneginf(lse).all()
 
 
-@pytest.mark.parametrize("rows,d", [(8, 896), (33, 5120)])
+@pytest.mark.parametrize("rows,d", [(8, 896), (33, 5120), (1024, 4096)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("genome", RMS_GENOMES, ids=lambda g: g.name)
 def test_fused_add_rmsnorm_genome_matches_plain(dev, genome, dtype, rows,
@@ -224,7 +224,7 @@ def test_fused_add_rmsnorm_genome_matches_plain(dev, genome, dtype, rows,
     _close(r_new, r_want, dtype)
 
 
-@pytest.mark.parametrize("rows,d", [(8, 4864), (17, 11008)])
+@pytest.mark.parametrize("rows,d", [(8, 4864), (17, 11008), (64, 8192)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("genome", SILU_GENOMES, ids=lambda g: g.name)
 def test_silu_and_mul_genome_matches_plain(dev, genome, dtype, rows, d):

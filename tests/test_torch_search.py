@@ -33,7 +33,8 @@ from repro_torch.core import (CodingAgent, PlanningAgent, ProfilingAgent,
                               optimize_single_agent, reintegrate)
 from repro_torch.core import agents, policy
 from repro_torch.kernels import _build, ops, registry
-from repro_torch.kernels import fused_add_rmsnorm, merge_attn_states
+from repro_torch.kernels import (fused_add_rmsnorm, merge_attn_states,
+                                  silu_and_mul)
 from repro_torch.kernels.registry import (KernelSpace, Knob, TestCase,
                                           clear_suite_memos, get_space,
                                           oracle_outputs, suite_tests)
@@ -41,6 +42,7 @@ from repro_torch.search import (BeamSearch, EvalCache, Population,
                                 SearchOrchestrator, TieredEvaluator,
                                 genome_key)
 from repro_torch.search import cache as cache_mod
+from repro_torch.search import evaluator as evaluator_mod
 
 PAPER = ("fused_add_rmsnorm", "merge_attn_states_lse", "silu_and_mul")
 
@@ -461,6 +463,77 @@ def test_evaluate_many_is_parallel_deterministic_and_dedups():
         assert s.profile.geomean_latency_us == p.profile.geomean_latency_us
     assert cache.max_evals_per_genome() == 1
     assert len(cache) == 3 and cache.stats()["hits"] == 2
+
+
+@pytest.mark.parametrize("module", [fused_add_rmsnorm, silu_and_mul],
+                         ids=lambda m: m.__name__.split(".")[-1])
+def test_block_rows_launches_nothing_new_at_the_suite_shapes(module):
+    """The wrappers clamp rows a block to what keeps 132 SMs busy, below
+    the knob's lowest value at every suite shape, so every legal
+    ``block_rows`` has one launch key there; a bool flag changes it."""
+    space = get_space(module.__name__.split(".")[-1])
+    knob = next(k for k in space.knobs if k.name == "block_rows")
+    flag = next(k for k in space.knobs if k.kind == "bool")
+    for shape in module.SUITE_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            info = module.make_inputs(shape, dtype=dtype).shape_info
+            keys = {space.launch_key(dataclasses.replace(
+                        space.baseline, block_rows=1 << b), **info)
+                    for b in range(knob.lo.bit_length() - 1,
+                                   knob.hi.bit_length())}
+            assert len(keys) == 1
+            moved = dataclasses.replace(
+                space.baseline,
+                **{flag.name: not getattr(space.baseline, flag.name)})
+            assert space.launch_key(moved, **info) not in keys
+
+
+def test_a_move_that_launches_the_same_code_is_a_cache_hit():
+    space = reduced("fused_add_rmsnorm")
+    tests = suite_tests(space, cpu_tester(dtypes=(torch.float32,)))
+    ev, cache = TieredEvaluator(), EvalCache()
+    kw = dict(testing=cpu_tester(), profiling=ProfilingAgent(), cache=cache)
+    first = ev.evaluate(space, fused_add_rmsnorm.OPTIMIZED, tests, **kw)
+    same = ev.evaluate(space, dataclasses.replace(
+        fused_add_rmsnorm.OPTIMIZED, name="moved", block_rows=64), tests, **kw)
+    assert not first.cached and same.cached
+    assert same.profile.geomean_latency_us == \
+        first.profile.geomean_latency_us
+    other = ev.evaluate(space, fused_add_rmsnorm.BASELINE, tests, **kw)
+    assert not other.cached
+    assert ev.stats.profile_runs == 2 and cache.max_evals_per_genome() == 1
+
+
+def test_a_suite_on_the_card_is_evaluated_one_genome_at_a_time(
+        monkeypatch):
+    """Work launched from another thread would land inside a timing's
+    events on the card's one stream, so evaluate_many keeps a card suite
+    on the calling thread whatever ``workers`` says."""
+    space, tests = eval_space("toy_on_card")
+    variants = [ToyVariant(name=f"v{k}", block=k) for k in (16, 32, 64)]
+
+    class ThreadRecorder(CountingTester):
+        def __init__(self):
+            super().__init__()
+            self.threads = set()
+
+        def validate(self, *a, **kw):
+            self.threads.add(threading.get_ident())
+            return super().validate(*a, **kw)
+
+    on_cpu = ThreadRecorder()
+    TieredEvaluator().evaluate_many(
+        space, variants, tests, testing=on_cpu, profiling=ProfilingAgent(),
+        cache=EvalCache(), workers=4)
+    assert on_cpu.threads - {threading.get_ident()}   # the pool ran them
+    monkeypatch.setattr(evaluator_mod, "on_card", lambda tests: True)
+    on_card = ThreadRecorder()
+    results = TieredEvaluator().evaluate_many(
+        space, variants, tests, testing=on_card, profiling=ProfilingAgent(),
+        cache=EvalCache(), workers=4)
+    assert on_card.threads == {threading.get_ident()}
+    assert on_card.calls == len(variants) * len(tests)
+    assert all(r.passed for r in results)
 
 
 def test_persistent_cache_round_trips_across_processes(tmp_path):
