@@ -11,21 +11,30 @@ Phases, each of which fails the run (non-zero exit) on any error:
 2. Each Hopper kernel against its plain PyTorch version on the card, at
    the shapes its path gives it, in bf16 and fp32, with the tolerance
    stated; each kernel's time beside its bound and beside the plain
-   version's time. The shipped genomes, and the paper's baseline genomes.
+   version's time, and, for the contiguous decode attention, beside one
+   ``scaled_dot_product_attention`` call on the same inputs (the port
+   never calls it). The shipped genomes, and the baseline genomes.
 3. Tune: the Astra agent loop (``optimize_all``, greedy, 5 rounds) on the
-   paper's three kernels, tested on the card in fp32 and bf16 at the JAX
+   paper's three kernels and the contiguous decode attention
+   (``flash_decode``), tested on the card in fp32 and bf16 at the JAX
    suite shapes and timed with CUDA events (L2 flushed before every timed
    launch). It prints each Log, paper Table 2 (baseline vs best, both
-   re-timed and re-validated on the card at every suite shape) and Table 3
-   (the single-agent baseline timed the same way), then reintegrates the
-   best genomes.
-4. Serve: ``LLMEngine`` on qwen2-0.5b at full width in bf16 with seeded
-   random weights, 16 greedy requests, once with the shipped genomes and
-   once with the reintegrated ones; every request must finish with 32
-   tokens, ``readbacks == steps``, and each kernel's launch count must be
-   what the path and the installed genome imply.
-5. Reference: on the reduced config in fp32, the port's logits and greedy
-   streams on the card agree with its plain versions on the CPU.
+   re-timed and re-validated on the card at every suite shape; the
+   geomean over the paper's three), the same row for ``flash_decode``,
+   and Table 3 (the single-agent baseline timed the same way), then
+   reintegrates the best genomes.
+4. Serve: ``LLMEngine`` at full width in bf16 with seeded random weights,
+   16 greedy requests of 32 tokens each: qwen2-0.5b from the paged pool,
+   once with the shipped genomes and once with the reintegrated ones;
+   then h2o-danube-1.8b (sliding window 4096) from the contiguous ring
+   with the reintegrated ones, four of its prompts crossing the window.
+   Every request must finish with 32 tokens, ``readbacks == steps``, and
+   each kernel's launch count must be what the path and the installed
+   genome imply.
+5. Reference: on the reduced qwen2 and h2o-danube configs in fp32, the
+   port's logits (the h2o ones past the window and after the ring wraps)
+   and greedy streams on the card agree with its plain versions on the
+   CPU.
 
 The line before the last holds the card's name and power limit; the line
 before that one JSON object with one row per kernel; the last line is
@@ -51,7 +60,11 @@ PEAK_OPS_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.float32: dict(rtol=1e-5, atol=1e-4),
        torch.bfloat16: dict(rtol=3e-2, atol=3e-2)}
 SERVE = dict(arch="qwen2-0.5b", slots=8, max_seq=512, page_size=16,
-             requests=16, min_prompt=16, max_prompt=256, max_new=32, seed=0)
+             requests=16, min_prompt=16, max_prompt=256, max_new=32, seed=0,
+             crossing=0)
+# two prompts just under the window (decoding crosses it), two past it
+SERVE_H2O = dict(SERVE, arch="h2o-danube-1.8b", max_seq=8192,
+                 max_prompt=2048, crossing=2)
 
 
 def log(*args):
@@ -125,6 +138,24 @@ def paged_inputs(b, hq, hkv, dh, page, n_pt, dtype, seed=0):
             torch.tensor(lens, dtype=torch.int32, device="cuda"))
 
 
+def flash_inputs(b, hq, hkv, dh, s, lens, dtype, seed=0):
+    """q, a contiguous [b, s, hkv, dh] cache and int32 kv_len."""
+    return (randn((b, hq, dh), dtype, seed + 1),
+            randn((b, s, hkv, dh), dtype, seed + 2),
+            randn((b, s, hkv, dh), dtype, seed + 3),
+            torch.tensor(lens, dtype=torch.int32, device="cuda"))
+
+
+def sdpa(q, k, v, kv_len):
+    """The library yardstick: one scaled_dot_product_attention call on
+    the decode inputs (views, and a mask made once)."""
+    mask = (torch.arange(k.shape[1], device=k.device)[None, :]
+            < kv_len[:, None])[:, None, None, :]
+    q4, k4, v4 = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+    return lambda: torch.nn.functional.scaled_dot_product_attention(
+        q4, k4, v4, attn_mask=mask, enable_gqa=True)[:, :, 0]
+
+
 def merge_inputs(shape, dtype, seed=0):
     """The tune suite's merge inputs (5% of s_b at -inf), plus a row with
     one side empty and a row with both sides empty."""
@@ -138,9 +169,10 @@ def merge_inputs(shape, dtype, seed=0):
 
 def kernel_cases():
     """(kernel, label, dtype, kernel call, plain call, bytes, ops,
-    l2_cold, main): ``main`` marks the kernel-table row (bf16, the shipped
-    genome, the decode shape; for the merge, which the tune phase drives,
-    the largest suite shape)."""
+    l2_cold, main, library call or None): ``main`` marks the kernel-table
+    row (bf16, the shipped genome, the decode shape; for the merge, which
+    the tune phase drives, the largest suite shape)."""
+    from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import fused_add_rmsnorm as rms
     from repro_torch.kernels import merge_attn_states as merge
     from repro_torch.kernels import ops, ref
@@ -156,7 +188,7 @@ def kernel_cases():
                           lambda x=x, r=r, w=w: ops.fused_add_rmsnorm(x, r, w),
                           lambda x=x, r=r, w=w: ref.fused_add_rmsnorm(x, r, w),
                           4 * rows * d * es + 4 * d, 6 * rows * d, False,
-                          rows == 8))
+                          rows == 8, None))
             if rows == 8:
                 g = rms.BASELINE
                 cases.append((
@@ -165,21 +197,23 @@ def kernel_cases():
                     lambda x=x, r=r, w=w, g=g:
                         rms.fused_add_rmsnorm(x, r, w, 1e-6, g),
                     lambda x=x, r=r, w=w, g=g: rms.plain(g, x, r, w),
-                    4 * rows * d * es + 4 * d, 6 * rows * d, False, False))
+                    4 * rows * d * es + 4 * d, 6 * rows * d, False, False,
+                    None))
         for rows in (1, 8, 256):
             d = 4864
             x = randn((rows, 2 * d), dtype, 4, scale=3.0)
             cases.append(("silu_and_mul", f"rows={rows} d={d}", dtype,
                           lambda x=x: ops.silu_and_mul(x),
                           lambda x=x: ref.silu_and_mul(x),
-                          3 * rows * d * es, 6 * rows * d, False, rows == 8))
+                          3 * rows * d * es, 6 * rows * d, False, rows == 8,
+                          None))
             if rows == 8:
                 g = silu.BASELINE
                 cases.append((
                     "silu_and_mul", f"rows={rows} d={d} {g.describe()}",
                     dtype, lambda x=x, g=g: silu.silu_and_mul(x, g),
                     lambda x=x, g=g: silu.plain(g, x),
-                    3 * rows * d * es, 6 * rows * d, False, False))
+                    3 * rows * d * es, 6 * rows * d, False, False, None))
         for hq, hkv, dh in ((14, 2, 64), (32, 8, 128)):
             b, page, n_pt = 8, 16, SERVE["max_seq"] // 16
             q, k, v, table, lens = paged_inputs(b, hq, hkv, dh, page, n_pt,
@@ -196,7 +230,28 @@ def kernel_cases():
                     ops.paged_flash_decode_attention(q, k, v, t, kv_len=n),
                 lambda q=q, k=k, v=v, t=table, n=lens:
                     ref.paged_flash_decode_attention(q, k, v, t, kv_len=n),
-                nbytes, 4 * rows * hq * dh, False, hq == 14))
+                nbytes, 4 * rows * hq * dh, False, hq == 14, None))
+        # the h2o-danube decode shape (a full 4096-row ring) and qwen2's
+        # shape on a contiguous 512-row cache (ragged lengths)
+        for b, hq, hkv, dh, s, lens in (
+                (8, 32, 8, 80, 4096, [4096] * 8),
+                (8, 14, 2, 64, 512, [1, 64, 511, 512, 200, 33, 300, 97])):
+            q, k, v, n = flash_inputs(b, hq, hkv, dh, s, lens, dtype)
+            rows = sum(lens)
+            nbytes = 2 * b * hq * dh * es + 2 * rows * hkv * dh * es + 4 * b
+            for g in (ops.get_variant("flash_decode"), fd.BASELINE):
+                cases.append((
+                    "flash_decode",
+                    f"b={b} hq/hkv={hq}/{hkv} d={dh} s={s} "
+                    f"kv_len={lens if len(set(lens)) > 1 else lens[0]} "
+                    f"{g.describe()}", dtype,
+                    lambda a=(q, k, v), n=n, g=g:
+                        fd.flash_decode_attention(*a, kv_len=n, variant=g),
+                    lambda a=(q, k, v), n=n, g=g:
+                        fd.plain(g, *a, n, a[0].shape[-1] ** -0.5),
+                    nbytes, 4 * rows * hq * dh, False,
+                    hq == 32 and g is not fd.BASELINE,
+                    sdpa(q, k, v, n) if g is not fd.BASELINE else None))
         for shape in ({"seq": 512, "heads": 32, "head_dim": 256},
                       {"seq": 768, "heads": 32, "head_dim": 256},
                       {"seq": 100, "heads": 7, "head_dim": 128}):
@@ -213,7 +268,7 @@ def kernel_cases():
                         merge.merge_attn_states_lse(*a, g),
                     lambda a=(va, sa, vb, sb), g=g: merge.plain(g, *a),
                     3 * n * d * es + 12 * n, 3 * n * d, True,
-                    n == 768 * 32 and g is merge.OPTIMIZED))
+                    n == 768 * 32 and g is merge.OPTIMIZED, None))
     return cases
 
 
@@ -227,6 +282,8 @@ SOURCES = {
     "merge_attn_states_lse": (
         "src/repro_torch/kernels/csrc/merge_attn_states.cu",
         "src/repro/kernels/merge_attn_states.py:122"),
+    "flash_decode": ("src/repro_torch/kernels/csrc/flash_decode.cu",
+                     "src/repro/kernels/flash_decode.py:150"),
 }
 REPS_COLD = 100
 
@@ -240,8 +297,8 @@ def cold_ms(fn) -> float:
 
 def phase_kernels(rows_out: dict) -> bool:
     ok = True
-    for name, label, dtype, kern, plain, nbytes, nops, l2_cold, main in \
-            kernel_cases():
+    for name, label, dtype, kern, plain, nbytes, nops, l2_cold, main, \
+            library in kernel_cases():
         got, want = kern(), plain()
         torch.cuda.synchronize()
         if isinstance(got, tuple):
@@ -252,13 +309,16 @@ def phase_kernels(rows_out: dict) -> bool:
             err = compare(got, want)
         timer = cold_ms if l2_cold else device_ms
         ms, plain_ms = timer(kern), timer(plain)
+        lib_ms = timer(library) if library is not None else None
         bound_ms = max(nbytes / HBM_BYTES_S, nops / PEAK_OPS_S[dtype]) * 1e3
         tol = TOL[dtype]
         log(f"  {name:20s} {str(dtype)[6:]:8s} {label}: max_abs={err[0]:.3e}"
             f" max_rel={err[1]:.3e} (tol rtol={tol['rtol']} "
             f"atol={tol['atol']}) {'ok' if err[2] else 'MISMATCH'}; "
             f"kernel {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, "
-            f"bound {bound_ms * 1e3:.3f} us (bytes)"
+            + (f"sdpa {lib_ms * 1e3:.2f} us, " if lib_ms is not None
+               else "")
+            + f"bound {bound_ms * 1e3:.3f} us (bytes)"
             f"{', L2 cold' if l2_cold else ''}")
         ok &= err[2]
         if main and dtype == torch.bfloat16:
@@ -268,7 +328,7 @@ def phase_kernels(rows_out: dict) -> bool:
                 "replaces": replaces, "launches": None,
                 "max_abs_err": err[0], "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_by": "bytes",
-                "library_ms": None, "shape": label,
+                "library_ms": lib_ms, "shape": label,
                 "timing": ("single launch after a 64 MB read, median of "
                            f"{REPS_COLD}") if l2_cold
                 else "50 launches in a CUDA graph, L2 warm, median of 5"}
@@ -282,7 +342,7 @@ def phase_tune() -> tuple[bool, dict, dict]:
                                   optimize_single_agent, reintegrate)
     from repro_torch.kernels import ops
     from repro_torch.kernels.registry import get_space, suite_tests
-    from repro_torch.search import optimize_all
+    from repro_torch.search import PAPER_KERNELS, optimize_all
 
     rounds = 5
     testing = TestingAgent()
@@ -290,7 +350,8 @@ def phase_tune() -> tuple[bool, dict, dict]:
     t0 = time.perf_counter()
     ops.reset_launch_counts()
     results = optimize_all(rounds=rounds, testing=testing,
-                           profiling=profiling)
+                           profiling=profiling,
+                           kernels=PAPER_KERNELS + ("flash_decode",))
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     log(f"  optimize_all(rounds={rounds}, greedy): "
@@ -320,8 +381,10 @@ def phase_tune() -> tuple[bool, dict, dict]:
         opt = hifi.profile(space, best, tests).geomean_latency_us
         good, err = testing.validate(space, best, tests)
         ok &= good and base_ok
-        t2.append((name, f"K{i}", base, opt, good, err, best.describe(),
-                   base_ok, base_err))
+        t2.append((name, f"K{i}" if name in PAPER_KERNELS else "  ", base,
+                   opt, good, err, best.describe(), base_ok, base_err))
+        if name not in PAPER_KERNELS:
+            continue
         sa = optimize_single_agent(name, rounds=rounds)
         sa_lat = hifi.profile(space, sa.final_variant,
                               tests).geomean_latency_us
@@ -340,8 +403,9 @@ def phase_tune() -> tuple[bool, dict, dict]:
         if not base_ok:
             log(f"  FAIL {name}: baseline genome fails validation on the "
                 "card")
-    geo = float(np.exp(np.mean([np.log(r[2] / r[3]) for r in t2])))
-    log(f"    geomean speedup {geo:.3f}x")
+    geo = float(np.exp(np.mean([np.log(r[2] / r[3]) for r in t2
+                                 if r[0] in PAPER_KERNELS])))
+    log(f"    geomean speedup over the paper's three {geo:.3f}x")
     log("  Table 3: single agent vs multi agent (speedup over baseline)")
     for name, base, sa, ma, sa_ok, genome in t3:
         log(f"    {name}: baseline {base:.2f} us, SA {sa:.3f}x (correct "
@@ -355,39 +419,49 @@ def phase_tune() -> tuple[bool, dict, dict]:
     return ok, counts, results
 
 
-def phase_serve(label: str) -> tuple[bool, dict]:
+def phase_serve(label: str, s: dict) -> tuple[bool, dict]:
+    """Serve ``s["requests"]`` greedy requests on ``s["arch"]`` at full
+    width; returns (ok, launch counts of the run)."""
     from repro_torch import configs
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import measure, prompts_for
     from repro_torch.models import registry
 
-    s = SERVE
     cfg = configs.get(s["arch"])
     t0 = time.perf_counter()
     params = registry.init_params(cfg, seed=s["seed"])
     torch.cuda.synchronize()
     log(f"  {cfg.name} full width ({cfg.n_layers} layers, d_model "
         f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, d_ff "
-        f"{cfg.d_ff}, vocab {cfg.padded_vocab}) {cfg.dtype}, seeded init "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{cfg.d_ff}, vocab {cfg.padded_vocab}, window {cfg.window}) "
+        f"{cfg.dtype}, seeded init {time.perf_counter() - t0:.1f} s")
     prompts = prompts_for(cfg, s["requests"], s["min_prompt"],
-                          s["max_prompt"], s["seed"])
+                          s["max_prompt"], s["seed"], crossing=s["crossing"])
     m, outs = measure(params, cfg, prompts, max_new=s["max_new"],
                       slots=s["slots"], max_seq=s["max_seq"],
                       page_size=s["page_size"], device="cuda")
     steps, prefills = m["steps"], s["requests"]
     rms = ops.get_variant("fused_add_rmsnorm")
+    # decode attention runs on the cache layout's kernel alone
+    if m["paged"]:
+        attn, layout = "paged_flash_decode", f"paged pool, page " \
+            f"{s['page_size']}"
+    else:
+        attn = "flash_decode"
+        layout = (f"contiguous ring of {cfg.window} rows a slot, "
+                  f"flash_decode {ops.get_variant(attn).describe()}")
     log(f"  {label}: fused_add_rmsnorm {rms.describe()}; silu_and_mul "
         f"{ops.get_variant('silu_and_mul').describe()}")
     # a two-pass rmsnorm launches twice a call; the merge is not on the path
     want = {"fused_add_rmsnorm": (2 if rms.two_pass else 1)
             * (2 * cfg.n_layers + 1) * (steps + prefills),
             "silu_and_mul": cfg.n_layers * (steps + prefills),
-            "paged_flash_decode": cfg.n_layers * steps,
+            "paged_flash_decode": 0, "flash_decode": 0,
             "merge_attn_states_lse": 0}
+    want[attn] = cfg.n_layers * steps
     log(f"  {s['requests']} requests, prompt lengths {m['prompt_lens']}, "
         f"max_new_tokens {s['max_new']}, slots {s['slots']}, max_seq "
-        f"{s['max_seq']}, page {s['page_size']}")
+        f"{s['max_seq']}, {layout}")
     log(f"  tok_s={m['tok_s']:.1f} mean_ttft_s={m['ttft_s']:.4f} "
         f"steps={steps} readbacks={m['readbacks']} "
         f"prefill_buckets={m['prefill_buckets']} "
@@ -461,6 +535,58 @@ def phase_reference() -> bool:
     return ok and same
 
 
+def phase_reference_window() -> bool:
+    """Reduced h2o-danube config (window 64) in fp32: prefill logits and
+    the ring for a prompt longer than the window, decode logits after the
+    ring wraps, and greedy streams of prompts that cross the window, on
+    the card against the plain versions on the CPU."""
+    from repro_torch import configs
+    from repro_torch.launch.serve import prompts_for
+    from repro_torch.models import registry, transformer
+    from repro_torch.serving import LLMEngine
+
+    cfg = dataclasses.replace(configs.smoke("h2o-danube-1.8b"),
+                              dtype="float32")
+    gpu = registry.init_params(cfg, seed=2)
+    cpu = transformer.cast_params(gpu, cfg, torch.device("cpu"))
+    toks = torch.tensor(np.random.default_rng(2).integers(0, cfg.vocab,
+                                                          (1, 100)))
+    outs = []
+    for params, dev in ((gpu, "cuda"), (cpu, "cpu")):
+        lg, kv = registry.prefill(params, cfg, toks.to(dev))
+        ring = kv["k"].cpu()
+        cache = registry.init_cache(cfg, 2, 192, dev)
+        registry.write_slot(cfg, cache, kv, 1)
+        steps = []
+        for t in range(3):       # slot 1 writes rows 36..38 of its ring
+            i32 = dict(dtype=torch.int32, device=dev)
+            logits, cache = registry.decode_cached(
+                params, cfg, cache, torch.tensor([3, 5 + t], **i32),
+                torch.tensor([t, 100 + t], **i32))
+            steps.append(logits.cpu())
+        outs.append((lg.cpu(), ring, torch.stack(steps)))
+    ok = True
+    for what, g, c in zip(("prefill logits (100 tokens, window 64)",
+                           "ring after prefill",
+                           "decode logits after the wrap"), *outs):
+        err = compare(g, c)
+        ok &= err[2]
+        log(f"  {what} card vs cpu: max_abs={err[0]:.3e} "
+            f"{'ok' if err[2] else 'MISMATCH'}")
+    prompts = prompts_for(cfg, 6, 3, 40, 2, crossing=2)
+    runs = []
+    for params, dev in ((gpu, None), (cpu, "cpu")):
+        llm = LLMEngine(params, cfg, slots=3, max_seq=192, device=dev)
+        runs.append(([o.tokens for o in llm.generate(prompts,
+                                                     max_new_tokens=30)],
+                     llm.stats()["steps"]))
+    same = runs[0] == runs[1]
+    log(f"  greedy streams card vs cpu (prompt lengths "
+        f"{[len(p) for p in prompts]}, steps {runs[0][1]} vs {runs[1][1]}):"
+        f" {'equal' if same else 'DIFFER'}")
+    return ok and same
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; this script runs only "
@@ -497,24 +623,29 @@ def main() -> int:
     ok3, tune_counts, results = phase_tune()
     phase_s["tune"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    log("phase 4: serve, with the shipped genomes, then the reintegrated")
+    log("phase 4: serve qwen2-0.5b with the shipped genomes, then the "
+        "reintegrated; h2o-danube-1.8b with the reintegrated")
     tuned = {n: ops.get_variant(n) for n in results}
     ops.set_variants(**{n: get_space(n).shipped for n in results})
-    ok4a, shipped_counts = phase_serve("shipped genomes")
+    ok4a, shipped_counts = phase_serve("shipped genomes", SERVE)
     ops.set_variants(**tuned)
-    ok4b, serve_counts = phase_serve("reintegrated genomes")
+    ok4b, serve_counts = phase_serve("reintegrated genomes", SERVE)
+    ok4c, h2o_counts = phase_serve("reintegrated genomes", SERVE_H2O)
     phase_s["serve"] = time.perf_counter() - t0
     for name, row in rows.items():
-        row["launches"] = tune_counts[name] + serve_counts[name]
+        row["launches"] = (tune_counts[name] + serve_counts[name]
+                           + h2o_counts[name])
         row["launches_by_path"] = {"tune": tune_counts[name],
                                    "serve_shipped": shipped_counts[name],
-                                   "serve_reintegrated": serve_counts[name]}
+                                   "serve_reintegrated": serve_counts[name],
+                                   "serve_h2o": h2o_counts[name]}
     rows["merge_attn_states_lse"]["note"] = (
         "not on the serve path (the model inlines its merge); the tune "
         "phase (the agent loop) drives it")
     t0 = time.perf_counter()
     log("phase 5: reference on a small input")
     ok5 = phase_reference()
+    ok5 &= phase_reference_window()
     phase_s["reference"] = time.perf_counter() - t0
     log("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                       for k, v in phase_s.items()))
@@ -524,10 +655,10 @@ def main() -> int:
         log(f"FAIL: no launch on the driven paths for {idle}")
     log(json.dumps({"kernels": [rows[n] for n in SOURCES]}))
     log(card)
-    ok = ok2 and ok3 and ok4a and ok4b and ok5 and not idle
+    ok = ok2 and ok3 and ok4a and ok4b and ok4c and ok5 and not idle
     if not ok:
         log(f"chip_smoke FAILED: kernels {ok2} tune {ok3} serve "
-            f"{ok4a}/{ok4b} reference {ok5}")
+            f"{ok4a}/{ok4b}/{ok4c} reference {ok5}")
         return 1
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,10 +4,10 @@
 reduced same-family config the CPU tests use.
 """
 
-from repro_torch.configs import qwen2_0_5b
+from repro_torch.configs import h2o_danube_1_8b, qwen2_0_5b
 from repro_torch.configs.base import ModelConfig
 
-_MODULES = {"qwen2-0.5b": qwen2_0_5b}
+_MODULES = {"qwen2-0.5b": qwen2_0_5b, "h2o-danube-1.8b": h2o_danube_1_8b}
 
 CONFIGS = {k: m.CONFIG for k, m in _MODULES.items()}
 

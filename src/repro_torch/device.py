@@ -14,6 +14,7 @@ SMS = 132
 MAX_THREADS = 1024                  # per block
 MAX_THREADS_PER_SM = 2048
 MAX_BLOCKS_PER_SM = 32
+SMEM_PER_BLOCK = 232_448            # shared memory bytes a block (227 KB)
 
 
 def resident_blocks(threads: int) -> int:

@@ -42,6 +42,8 @@ SIGNATURES = {
                                 _I, _I, _I, _P),
     "repro_paged_decode_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                      _I, _I, _I, _F, _I, _I, _P),
+    "repro_flash_decode_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                     _I, _I, _F, _I, _I, _I, _I, _P),
 }
 
 _lib = None

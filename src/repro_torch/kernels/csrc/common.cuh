@@ -1,6 +1,7 @@
 // Helpers shared by the port's CUDA kernels: fp32 <-> storage-type
-// conversion, 16-byte vector loads and stores, a block-wide sum, and the
-// dispatch of run-time genome flags to template instantiations.
+// conversion, 16-byte vector loads and stores, warp- and block-wide
+// reductions, and the dispatch of run-time genome flags to template
+// instantiations.
 //
 // Every kernel computes in fp32 and stores in the tensor's own type
 // (float or __nv_bfloat16). Dtype codes passed across the C interface:
@@ -67,6 +68,19 @@ __device__ __forceinline__ void store_vec(T* p, const float* in) {
 #pragma unroll
   for (int k = 0; k < N; ++k) e[k] = from_f<T>(in[k]);
   *reinterpret_cast<uint4*>(p) = raw;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
 }
 
 // Sum of v over the block: warp shuffles, then one partial per warp in

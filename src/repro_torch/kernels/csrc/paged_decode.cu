@@ -37,23 +37,12 @@ namespace {
 using repro::from_f;
 using repro::load_vec;
 using repro::to_f;
+using repro::warp_max;
+using repro::warp_sum;
 
 constexpr int kChunk = 64;         // logical rows per step of the loop
 constexpr int kThreads = 128;      // 4 warps
 constexpr float kNegInf = -1e30f;  // finite -inf: exp() stays defined
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 template <typename T, int VEC>
 __global__ void paged_decode_kernel(const T* __restrict__ q,

@@ -11,7 +11,7 @@ reintegration); ``get_variant`` reads them back through the kernel
 registry, as the JAX package's ``ops`` does: a kernel with no override
 runs its registered space's shipped genome, and a name with no registered
 space raises KeyError. ``paged_flash_decode`` has no space yet and keeps
-its single form.
+its single form; the contiguous ``flash_decode`` has one.
 """
 
 from __future__ import annotations
@@ -27,7 +27,8 @@ _OVERRIDES: dict[str, object] = {}
 _WRAPPERS = {"fused_add_rmsnorm": _rms.fused_add_rmsnorm,
              "silu_and_mul": _silu.silu_and_mul,
              "paged_flash_decode": _fd.paged_flash_decode_attention,
-             "merge_attn_states_lse": _merge.merge_attn_states_lse}
+             "merge_attn_states_lse": _merge.merge_attn_states_lse,
+             "flash_decode": _fd.flash_decode_attention}
 
 
 def set_variants(**kwargs) -> None:
@@ -61,6 +62,16 @@ def merge_attn_states_lse(v_a, s_a, v_b, s_b):
     """LSE merge of two partial attention states. Returns ``(v, s)``."""
     return _merge.merge_attn_states_lse(v_a, s_a, v_b, s_b,
                                         get_variant("merge_attn_states_lse"))
+
+
+def flash_decode_attention(q, k, v, *, kv_len=None, sm_scale=None,
+                           return_lse: bool = False):
+    """Single-token GQA decode attention over a contiguous KV cache
+    ``[batch, seq, kv_heads, head_dim]``."""
+    return _fd.flash_decode_attention(q, k, v, kv_len=kv_len,
+                                      sm_scale=sm_scale,
+                                      variant=get_variant("flash_decode"),
+                                      return_lse=return_lse)
 
 
 def paged_flash_decode_attention(q, k_pages, v_pages, page_table, *,

@@ -4,13 +4,24 @@ weights and seeded prompts, with an optional ``torch.profiler`` breakdown.
 On the card (the default device):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \
         --requests 16 --slots 8 --max-new 32 --profile
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch h2o-danube-1.8b --max-prompt 2048 --crossing 2
 On the CPU, at the reduced config:
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
+
+An architecture that can page (qwen2-0.5b) is served from the paged pool;
+a sliding-window one (h2o-danube-1.8b) from the contiguous cache, a
+window-row ring per slot, whose decode attention is the ``flash_decode``
+kernel. ``--max-seq`` defaults to 512, or twice the window.
+``--crossing N`` gives N prompts a length just under the window (decoding
+carries them across it) and N a length past it (prefilled at exact
+length and laid out as the ring).
 
 It prints one JSON line of serving metrics (tok/s, mean TTFT, steps,
 readbacks, kernel launches, and on the card the peak memory and the card's
 name and power limit). ``--profile`` adds, for the measured run, the
-device's busy share of the wall time and the top operators by device time
+device's busy share of the wall time, each of the port's kernels by name
+with its launches and device time, and the top operators by device time
 and by host time.
 """
 
@@ -19,6 +30,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import re
 import subprocess
 import time
 
@@ -32,12 +44,57 @@ from repro_torch.models import registry
 from repro_torch.serving import LLMEngine
 
 
-def prompts_for(cfg, n: int, lo: int, hi: int, seed: int) -> list:
-    """``n`` prompts of seeded lengths in ``[lo, hi]`` and seeded ids."""
+# the port's CUDA kernels by the name of their __global__ function
+KERNEL_SYMBOLS = {
+    "one_pass_kernel": "fused_add_rmsnorm", "pass1_kernel":
+    "fused_add_rmsnorm", "pass2_kernel": "fused_add_rmsnorm",
+    "silu_and_mul_kernel": "silu_and_mul",
+    "paged_decode_kernel": "paged_flash_decode",
+    "flash_decode_kernel": "flash_decode",
+    "merge_kernel": "merge_attn_states_lse",
+    "merge_s_out_kernel": "merge_attn_states_lse"}
+
+
+def prompts_for(cfg, n: int, lo: int, hi: int, seed: int, *,
+                crossing: int = 0) -> list:
+    """``n`` prompts of seeded lengths in ``[lo, hi]`` and seeded ids.
+    ``crossing`` > 0 (a sliding-window config only) redraws the lengths of
+    the first ``crossing`` prompts in ``[window - 26, window - 6]``, so
+    that 32 new tokens carry them across the window, and of the next
+    ``crossing`` in ``(window, 1.5 window]``, longer than the ring."""
     rng = np.random.default_rng(seed)
     lens = rng.integers(lo, hi + 1, size=n)
+    if crossing:
+        w = cfg.window
+        if not w or 2 * crossing > n:
+            raise ValueError(f"crossing={crossing} needs a sliding-window "
+                             f"config and at least {2 * crossing} prompts")
+        lens[:crossing] = rng.integers(w - 26, w - 5, size=crossing)
+        lens[crossing:2 * crossing] = rng.integers(w + 1, w + w // 2 + 1,
+                                                   size=crossing)
     return [rng.integers(0, cfg.vocab, size=int(m)).astype(np.int32)
             for m in lens]
+
+
+def default_max_seq(cfg) -> int:
+    """512 rows a slot, or twice the window of a sliding-window config."""
+    return 2 * cfg.window if cfg.window else 512
+
+
+def kernel_times(events) -> dict:
+    """{kernel: {"launches", "device_us"}} of the port's CUDA kernels among
+    ``torch.profiler`` key averages, by the name of their function."""
+    out: dict = {}
+    for e in events:
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        found = re.search(r"::(\w+)[<(]", e.key)
+        name = KERNEL_SYMBOLS.get(found.group(1)) if found else None
+        if name is not None:
+            row = out.setdefault(name, {"launches": 0, "device_us": 0.0})
+            row["launches"] += e.count
+            row["device_us"] += e.self_device_time_total
+    return out
 
 
 def card() -> str:
@@ -81,7 +138,8 @@ def measure(params, cfg, prompts, *, max_new: int, slots: int,
            "n_layers": cfg.n_layers, "dtype": cfg.dtype,
            "device": str(dev), "requests": len(outs),
            "prompt_lens": [len(p) for p in prompts], "max_new": max_new,
-           "slots": slots, "max_seq": max_seq, "page_size": page_size,
+           "slots": slots, "max_seq": max_seq, "paged": st["paged"],
+           "page_size": page_size,
            "wall_s": wall, "tok_s": st["tok_s"], "ttft_s": st["ttft"],
            "steps": st["steps"], "readbacks": st["readbacks"],
            "prefill_buckets": st["prefill_shapes"],
@@ -101,6 +159,7 @@ def measure(params, cfg, prompts, *, max_new: int, slots: int,
         out["device_kernel_s"] = dev_us / 1e6
         out["kernel_launches"] = sum(e.count for e in ev
                                      if e.key == "cudaLaunchKernel")
+        out["port_kernels"] = kernel_times(ev)
         sort = "self_cuda_time_total" if cuda else "self_cpu_time_total"
         print(ev.table(sort_by=sort, row_limit=profile_rows))
         if cuda:
@@ -115,9 +174,10 @@ def run(args) -> dict:
     cfg = configs.smoke(args.arch) if args.smoke else configs.get(args.arch)
     params = registry.init_params(cfg, seed=args.seed, device=dev)
     prompts = prompts_for(cfg, args.requests, args.min_prompt,
-                          args.max_prompt, args.seed)
+                          args.max_prompt, args.seed, crossing=args.crossing)
+    max_seq = args.max_seq or default_max_seq(cfg)
     out, _ = measure(params, cfg, prompts, max_new=args.max_new,
-                     slots=args.slots, max_seq=args.max_seq,
+                     slots=args.slots, max_seq=max_seq,
                      page_size=args.page_size, device=dev,
                      profile_rows=args.rows if args.profile else 0)
     return out
@@ -132,11 +192,14 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--slots", type=int, default=8)
-    ap.add_argument("--max-seq", type=int, default=512)
+    ap.add_argument("--max-seq", type=int, default=None,
+                    help="rows a slot (default 512, or twice the window)")
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--min-prompt", type=int, default=16)
     ap.add_argument("--max-prompt", type=int, default=256)
     ap.add_argument("--max-new", type=int, default=32)
+    ap.add_argument("--crossing", type=int, default=0,
+                    help="prompts just under and past the window, each")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--rows", type=int, default=25,

@@ -2,8 +2,10 @@
 
 Every layer calls the kernels through ``repro_torch.kernels.ops``, never a
 kernel module directly. Projections are plain matrix products; the
-prefill attention and the rotary embedding are plain PyTorch in fp32, as
-the JAX package computes them in jnp outside any Pallas kernel.
+prefill attention (causal, windowed where the config has a window), the
+rotary embedding and the decode-cache write are plain PyTorch, the
+attention and rope in fp32, as the JAX package computes them in jnp
+outside any Pallas kernel.
 
 Shapes keep the JAX package's layout: activations ``[B, S, D]``, heads
 ``[B, S, H, dh]``, projection weights with an explicit head axis
@@ -85,40 +87,76 @@ def out_proj(p, o, dtype):
     return o.flatten(-2) @ p["wo"].reshape(h * dh, d).to(dtype)
 
 
-def flash_attention(q, k, v):
-    """Causal self-attention, fp32. q: ``[B, Sq, Hq, dh]``, k/v: ``[B, Skv,
-    Hkv, dh]`` (GQA by head grouping). The JAX version walks KV in
-    512-row chunks with an online softmax; over one chunk that is this
-    computation, and over more it differs only by rounding."""
+def flash_attention(q, k, v, *, window=None, chunk: int = 512):
+    """Causal self-attention in fp32, optionally over a sliding window of
+    ``window`` positions (query i sees keys i - window < j <= i). q:
+    ``[B, Sq, Hq, dh]``, k/v: ``[B, Skv, Hkv, dh]`` (GQA by head
+    grouping). KV is walked in ``chunk``-row steps with an online softmax,
+    as the JAX ``_flash_fwd_scan`` does, so the scores of one step
+    (``[B, Hkv, G, Sq, chunk]``) are the largest temporary."""
     b, sq, hq, dh = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
-    qf = q.to(F32).reshape(b, sq, hkv, g, dh) * dh ** -0.5
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.to(F32))
+    chunk = min(chunk, skv)
+    qf = (q.to(F32) * dh ** -0.5).reshape(b, sq, hkv, g, dh) \
+        .permute(0, 2, 3, 1, 4)                           # [B,Hkv,G,Sq,D]
     q_pos = torch.arange(sq, device=q.device)
-    k_pos = torch.arange(skv, device=q.device)
-    s = s.masked_fill(k_pos[None, :] > q_pos[:, None], MASKED)
-    m = s.amax(dim=-1, keepdim=True)
-    p = torch.exp(s - m)
-    l = p.sum(dim=-1)
-    out = torch.einsum("bhgqk,bkhd->bhgqd", p, v.to(F32))
-    out = out / torch.clamp(l, min=1e-30)[..., None]
+    m = torch.full((b, hkv, g, sq), MASKED, dtype=F32, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((b, hkv, g, sq, dh), dtype=F32, device=q.device)
+    for c0 in range(0, skv, chunk):
+        ks = k[:, c0:c0 + chunk].to(F32)
+        vs = v[:, c0:c0 + chunk].to(F32)
+        if ks.shape[1] < chunk:        # JAX pads KV to a multiple of chunk
+            pad = (0, 0, 0, 0, 0, chunk - ks.shape[1])
+            ks = torch.nn.functional.pad(ks, pad)
+            vs = torch.nn.functional.pad(vs, pad)
+        s = torch.einsum("bhgqd,bkhd->bhgqk", qf, ks)
+        k_pos = c0 + torch.arange(chunk, device=q.device)
+        mask = k_pos[None, :] <= q_pos[:, None]
+        if window is not None:
+            mask &= (q_pos[:, None] - k_pos[None, :]) < window
+        s = torch.where(mask, s, MASKED)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("bhgqk,bkhd->bhgqd",
+                                                    p, vs)
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, dh).to(q.dtype)
 
 
 def attention_block(p, x, cfg: ModelConfig, *, positions=None):
-    """Full-sequence (prefill) self-attention sublayer. Returns the
-    sublayer output and this layer's ``(k, v)`` after rope."""
+    """Full-sequence (prefill) self-attention sublayer, windowed where the
+    config has a window. Returns the sublayer output and this layer's
+    ``(k, v)`` after rope."""
     b, s, _ = x.shape
-    if cfg.window is not None:
-        raise NotImplementedError("sliding-window attention is not ported")
     if positions is None:
         positions = torch.arange(s, device=x.device).expand(b, s)
     q, k, v = qkv_proj(p, x, cfg)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
-    o = flash_attention(q, k, v)
+    o = flash_attention(q, k, v, window=cfg.window)
     return out_proj(p, o, x.dtype), (k, v)
+
+
+def update_cache(cache_k, cache_v, k_new, v_new, pos) -> None:
+    """Write one token's K/V at row ``pos[b]`` of request ``b``, in place.
+
+    cache_k/v: ``[B, S, Hkv, dh]``; k_new/v_new: ``[B, Hkv, dh]``; pos:
+    ``[B]``. A row at or past S is dropped, as the JAX scatter drops an
+    out-of-range write (an idle slot's position keeps advancing past the
+    cache): the write goes to row S - 1 with that row's own value, so no
+    index leaves the cache and nothing waits on the host."""
+    b, s = cache_k.shape[:2]
+    idx = torch.arange(b, device=pos.device)
+    keep = (pos < s)[:, None, None]
+    row = torch.clamp(pos, max=s - 1).long()
+    for cache, new in ((cache_k, k_new), (cache_v, v_new)):
+        cache[idx, row] = torch.where(keep, new.to(cache.dtype),
+                                      cache[idx, row])
 
 
 def mlp_block(p, x):

@@ -1,5 +1,6 @@
 """Architecture registry, dense part: one API over the model families the
-port serves (so far the dense decoder of ``transformer.py``).
+port serves (so far the dense decoder of ``transformer.py``) and over
+both KV-cache layouts, the contiguous per-slot cache and the paged pool.
 
 ``init_params`` is an entry point: it builds on ``cuda`` unless the
 caller passes ``device="cpu"``.
@@ -47,9 +48,22 @@ def paged_ok(cfg: ModelConfig) -> bool:
         and not cfg.window
 
 
-def prefill(params, cfg: ModelConfig, prompt, *, length=None):
+def prefill(params, cfg: ModelConfig, prompt, *, length=None,
+            cache_len=None):
     """Prompt logits and KV cache; see the family module."""
-    return module_for(cfg).prefill(params, cfg, prompt, length=length)
+    return module_for(cfg).prefill(params, cfg, prompt, length=length,
+                                   cache_len=cache_len)
+
+
+def cache_spec(cfg: ModelConfig, batch: int, seq: int):
+    """Leaf shapes and dtypes of the contiguous cache for ``cfg``."""
+    return module_for(cfg).cache_spec(cfg, batch, seq)
+
+
+def init_cache(cfg: ModelConfig, batch: int, seq: int, device) -> dict:
+    """A zeroed contiguous cache for ``cfg``: ``batch`` slots of ``seq``
+    rows (a ``window``-row ring for a sliding-window config)."""
+    return module_for(cfg).init_cache(cfg, batch, seq, device)
 
 
 def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
@@ -61,13 +75,43 @@ def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
 
 def decode_cached(params, cfg: ModelConfig, cache, token, pos, *,
                   page_table=None):
-    """One decode step over the cache. Only the paged layout is ported, so
-    ``page_table`` (``[B, pages_per_slot]`` int32) is required."""
+    """One decode step against either cache layout: ``page_table=None``
+    selects the contiguous per-slot cache, a ``[B, pages_per_slot]`` int32
+    table the paged pool."""
+    mod = module_for(cfg)
     if page_table is None:
-        raise NotImplementedError("the contiguous cache is not ported yet; "
-                                  "serve from the paged pool")
-    return module_for(cfg).decode_step_paged(params, cfg, cache, page_table,
-                                             token, pos)
+        return mod.decode_step(params, cfg, cache, token, pos)
+    return mod.decode_step_paged(params, cfg, cache, page_table, token, pos)
+
+
+def write_cached(cfg: ModelConfig, cache, new, *, slot=None, pages=None,
+                 page_size=None):
+    """Scatter one request's prefill cache into either layout: ``slot``
+    for the contiguous cache or ``pages`` (and ``page_size``) for the
+    paged pool; exactly one of the two."""
+    if (slot is None) == (pages is None):
+        raise ValueError("write_cached wants exactly one of slot= / pages=")
+    if pages is not None:
+        return write_pages(cfg, cache, new, pages, page_size)
+    return write_slot(cfg, cache, new, slot)
+
+
+def write_slot(cfg: ModelConfig, cache, new, slot: int):
+    """Write one request's prefill cache (batch 1) into row ``slot`` of
+    the contiguous cache, in place.
+
+    ``new`` is ``{"k","v": [L, 1, S, Hkv, dh]}`` from ``prefill``; its
+    rows go to ``[0, S)`` of the slot, and rows past S keep what they
+    held (decode's ``kv_len`` never reaches them before overwriting).
+    When S is more than the slot holds, the last rows are kept, as the
+    JAX ``write_slot`` does; ``prefill`` has already laid a prompt longer
+    than the window out as the ring."""
+    for name, c in cache.items():
+        rows = new[name][:, 0]                       # [L, S, Hkv, dh]
+        if rows.shape[1] > c.shape[2]:
+            rows = rows[:, rows.shape[1] - c.shape[2]:]
+        c[:, slot, :rows.shape[1]] = rows.to(c.dtype)
+    return cache
 
 
 def write_pages(cfg: ModelConfig, pool, new, pages, page_size: int):

@@ -1,5 +1,7 @@
 """Dense decoder-only transformer (llama family): init, prefill and the
-paged decode step. The port of the JAX ``models/transformer.py``.
+decode step over either cache layout (the contiguous per-slot cache,
+a rolling ring for a sliding-window config, or the paged pool). The port
+of the JAX ``models/transformer.py``.
 
 Parameters are a plain dict. Where the JAX package stacks layer weights on
 a leading axis for ``lax.scan``, the port keeps a list with one dict per
@@ -8,9 +10,9 @@ stored in the compute dtype, cast once at load; the JAX package stores
 them in fp32 and casts at every use, which gives the same bits. Norm
 weights stay fp32, as the kernels read them in fp32.
 
-The paged decode step updates the KV pool in place (JAX donates the pool
-to the same effect) and makes no host round trip: positions, the page
-table and the lengths stay on the device.
+The decode steps update the cache in place (JAX donates it to the same
+effect) and make no host round trip: positions, the page table and the
+lengths stay on the device.
 """
 
 from __future__ import annotations
@@ -102,8 +104,24 @@ def init(cfg: ModelConfig, gen: torch.Generator, device) -> dict:
 
 
 # --------------------------------------------------------------------------
-# serving: prefill + single-token decode over the paged pool
+# serving: prefill + single-token decode over a KV cache
 # --------------------------------------------------------------------------
+
+def cache_spec(cfg: ModelConfig, batch: int, seq: int):
+    """Shape and dtype of each leaf of the contiguous cache ``[L, batch,
+    S, Hkv, dh]``: S is ``seq``, or ``min(seq, window)`` for a
+    sliding-window config, whose cache is a ring laid out at
+    ``pos % window``."""
+    s = min(seq, cfg.window) if cfg.window else seq
+    shape = (cfg.n_layers, batch, s, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": (shape, cfg.torch_dtype), "v": (shape, cfg.torch_dtype)}
+
+
+def init_cache(cfg: ModelConfig, batch: int, seq: int, device) -> dict:
+    """A zeroed contiguous cache ``{"k", "v": [L, batch, S, Hkv, dh]}``."""
+    return {name: torch.zeros(shape, dtype=dtype, device=device)
+            for name, (shape, dtype) in cache_spec(cfg, batch, seq).items()}
+
 
 def paged_cache_spec(cfg: ModelConfig, num_pages: int, page_size: int):
     """Shape and dtype of each leaf of the paged pool: the contiguous
@@ -123,11 +141,17 @@ def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
             in paged_cache_spec(cfg, num_pages, page_size).items()}
 
 
-def prefill(params, cfg: ModelConfig, tokens, *, length: int | None = None):
+def prefill(params, cfg: ModelConfig, tokens, *, length: int | None = None,
+            cache_len: int | None = None):
     """Process a prompt batch ``tokens [B, S]``. Returns (logits ``[B,
     V_pad]`` at position ``length - 1`` -- the true length of a prompt
     right-padded to a bucket -- or at the last position, and the cache
-    ``{"k", "v": [L, B, S, Hkv, dh]}``)."""
+    ``{"k", "v": [L, B, S', Hkv, dh]}``).
+
+    For a sliding-window config and S > window, the cache keeps the last
+    ``window`` positions, each at row ``pos % window`` (S' = window).
+    ``cache_len`` zero-pads the cache to that many rows (capped at the
+    window), ready for later decode steps."""
     b, s = tokens.shape
     hidden = L.embed_tokens(params["embed"], tokens).to(cfg.torch_dtype)
     residual = torch.zeros_like(hidden)
@@ -141,12 +165,57 @@ def prefill(params, cfg: ModelConfig, tokens, *, length: int | None = None):
         hidden = L.mlp_block(p["mlp"], normed)
         ks.append(k)
         vs.append(v)
+    ks, vs = torch.stack(ks), torch.stack(vs)
+    w = cfg.window
+    if w and s > w:
+        # the ring: position s - w + j goes to row (s - w + j) % w
+        order = torch.argsort(torch.arange(s - w, s, device=ks.device) % w)
+        ks, vs = ks[:, :, s - w:][:, :, order], vs[:, :, s - w:][:, :, order]
+    target = min(cache_len, w) if (cache_len and w) else cache_len
+    if target and target > ks.shape[2]:
+        pad = (0, 0, 0, 0, 0, target - ks.shape[2])
+        ks = torch.nn.functional.pad(ks, pad)
+        vs = torch.nn.functional.pad(vs, pad)
     last = s if length is None else int(length)
     normed, _ = L.add_rms_norm(hidden[:, last - 1:last],
                                residual[:, last - 1:last],
                                params["final_norm"], cfg.norm_eps)
     logits = L.unembed(normed[:, 0], params["lm_head"])
-    return logits, {"k": torch.stack(ks), "v": torch.stack(vs)}
+    return logits, {"k": ks, "v": vs}
+
+
+def decode_step(params, cfg: ModelConfig, cache, token, pos):
+    """One decode step over the contiguous cache, in place.
+
+    cache: ``{"k","v": [L, B, S, Hkv, dh]}``; token, pos: ``[B]`` int32.
+    The new token's K/V goes to row ``pos % window`` (a sliding-window
+    ring) or ``pos`` (dropped past S), and attention reads
+    ``min(pos + 1, window)`` or ``pos + 1`` rows through the
+    ``flash_decode`` kernel. Returns (logits ``[B, V_pad]``, cache)."""
+    hidden = L.embed_tokens(params["embed"], token[:, None]) \
+        .to(cfg.torch_dtype)                                    # [B,1,D]
+    residual = torch.zeros_like(hidden)
+    w = cfg.window
+    slot = pos % w if w else pos
+    kv_len = (torch.clamp(pos + 1, max=w) if w else pos + 1).to(torch.int32)
+    positions = pos[:, None]
+    for li, p in enumerate(params["layers"]):
+        k_l, v_l = cache["k"][li], cache["v"][li]
+        normed, residual = L.add_rms_norm(hidden, residual, p["attn_norm"],
+                                          cfg.norm_eps)
+        q, k_new, v_new = L.qkv_proj(p["attn"], normed, cfg)
+        q = L.rope(q, positions, cfg.rope_theta)
+        k_new = L.rope(k_new, positions, cfg.rope_theta)
+        L.update_cache(k_l, v_l, k_new[:, 0], v_new[:, 0], slot)
+        o = ops.flash_decode_attention(q[:, 0].contiguous(), k_l, v_l,
+                                       kv_len=kv_len)
+        attn_out = L.out_proj(p["attn"], o[:, None], o.dtype)
+        normed, residual = L.add_rms_norm(attn_out, residual, p["mlp_norm"],
+                                          cfg.norm_eps)
+        hidden = L.mlp_block(p["mlp"], normed)
+    normed, _ = L.add_rms_norm(hidden, residual, params["final_norm"],
+                               cfg.norm_eps)
+    return L.unembed(normed[:, 0], params["lm_head"]), cache
 
 
 def decode_step_paged(params, cfg: ModelConfig, pool, page_table, token,

@@ -3,20 +3,24 @@
 * ``SamplingParams`` (``serving/sampling.py``): greedy decoding.
 * ``Scheduler`` / ``FCFSScheduler`` (``serving/scheduler.py``): admission
   order.
-* ``PagedCacheManager`` / ``CacheConfig`` (``serving/cache_manager.py``):
-  the paged KV layout over ``PagePool`` (``serving/paging.py``).
+* ``ContiguousCacheManager`` / ``PagedCacheManager`` / ``CacheConfig``
+  (``serving/cache_manager.py``): the contiguous KV layout (a ring for a
+  sliding-window config) and the paged one over ``PagePool``
+  (``serving/paging.py``).
 * ``Engine`` (``serving/engine.py``): the device-resident core, one
   batched host readback per decode step.
 * ``LLMEngine`` (``serving/api.py``): ``generate()`` over the engine.
 """
 
 from repro_torch.serving.api import LLMEngine, RequestOutput
-from repro_torch.serving.cache_manager import CacheConfig, PagedCacheManager
+from repro_torch.serving.cache_manager import (CacheConfig,
+                                              ContiguousCacheManager,
+                                              PagedCacheManager)
 from repro_torch.serving.engine import Engine, Request
 from repro_torch.serving.paging import PagePool
 from repro_torch.serving.sampling import SamplingParams
 from repro_torch.serving.scheduler import FCFSScheduler, Scheduler
 
-__all__ = ["CacheConfig", "Engine", "FCFSScheduler", "LLMEngine",
-           "PagePool", "PagedCacheManager", "Request", "RequestOutput",
-           "SamplingParams", "Scheduler"]
+__all__ = ["CacheConfig", "ContiguousCacheManager", "Engine",
+           "FCFSScheduler", "LLMEngine", "PagePool", "PagedCacheManager",
+           "Request", "RequestOutput", "SamplingParams", "Scheduler"]

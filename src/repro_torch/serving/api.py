@@ -36,19 +36,23 @@ SamplingLike = Union[SamplingParams, Sequence[SamplingParams], None]
 
 
 class LLMEngine:
-    """vLLM-style facade over ``Engine`` on the paged KV pool.
+    """vLLM-style facade over ``Engine``.
 
     Runs on ``device`` (default ``cuda``; with no GPU it raises unless the
-    caller passes ``device="cpu"``). ``page_size`` / ``num_pages``
-    configure the pool (``num_pages=None`` fully subscribes)."""
+    caller passes ``device="cpu"``). ``paged`` picks the KV layout: None
+    serves from the paged pool where the architecture can page and from
+    the contiguous cache otherwise (a sliding-window config's ring);
+    ``page_size`` / ``num_pages`` configure the pool (``num_pages=None``
+    fully subscribes)."""
 
     def __init__(self, params, cfg: ModelConfig, *, slots: int = 4,
-                 max_seq: int = 512, page_size: int = 16,
-                 num_pages: Optional[int] = None, device=None):
+                 max_seq: int = 512, paged: Optional[bool] = None,
+                 page_size: int = 16, num_pages: Optional[int] = None,
+                 device=None):
         self.cfg = cfg
         self.engine = Engine(
             params, cfg, slots=slots, max_seq=max_seq, device=device,
-            cache_manager=CacheConfig(page_size=page_size,
+            cache_manager=CacheConfig(paged=paged, page_size=page_size,
                                       num_pages=num_pages))
         self._next_rid = 0
 

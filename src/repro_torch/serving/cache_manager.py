@@ -1,13 +1,17 @@
-"""Cache-management layer of the serving API: the paged KV layout behind
-the ``alloc / write / grow / evict`` surface the engine drives.
+"""Cache-management layer of the serving API: one ``alloc / write / grow
+/ evict`` surface over both KV-cache layouts.
 
-``PagedCacheManager`` owns the ``PagePool`` bookkeeping (trap page 0,
-per-slot page tables) and the trap-padded page vectors prefill admission
-writes through. ``CacheConfig`` is the declarative form that ``Engine``
-and ``LLMEngine`` resolve with their own cfg/slots/max_seq. The
-contiguous layout, the radix prefix cache and swap-out are not ported
-yet: the pool is fully subscribed by default, so no request ever waits
-for a page it will need.
+``ContiguousCacheManager`` gives every slot its own stripe of a ``[L,
+slots, S, Hkv, dh]`` cache (S = ``max_seq``, or the window for a
+sliding-window config, whose stripe is a ring): admission always fits
+and growth never runs out. ``PagedCacheManager`` owns the ``PagePool``
+bookkeeping (trap page 0, per-slot page tables) and the trap-padded page
+vectors prefill admission writes through. ``CacheConfig`` is the
+declarative form (``paged=None`` picks the paged pool where the
+architecture can page, else the contiguous cache) that ``Engine`` and
+``LLMEngine`` resolve with their own cfg/slots/max_seq. The radix prefix
+cache and swap-out are not ported yet: the pool is fully subscribed by
+default, so no request ever waits for a page it will need.
 """
 
 from __future__ import annotations
@@ -16,16 +20,89 @@ import dataclasses
 from typing import Optional
 
 import numpy as np
-import torch
 
 from repro_torch.models import registry
 from repro_torch.serving.paging import PagePool
 
 
-class PagedCacheManager:
+class CacheManager:
+    """What the engine asks of a cache layout; the defaults are the
+    contiguous layout's, where every slot always owns its rows."""
+
+    paged = False
+
+    def __init__(self, cfg, slots: int, max_seq: int, device):
+        self.cfg, self.slots, self.max_seq = cfg, slots, max_seq
+        self.device = device
+
+    def alloc(self, slot: int, n_tokens: int) -> bool:
+        """All-or-nothing hold for a prompt of ``n_tokens``."""
+        return True
+
+    def grow(self, slot: int) -> bool:
+        """Back one more decode write of ``slot``."""
+        return True
+
+    def evict(self, slot: int) -> None:
+        """Release the slot's residency."""
+
+    def infeasible(self, n_tokens: int) -> Optional[str]:
+        """Why a request of ``n_tokens`` can never be admitted, or None."""
+        return None
+
+    def decode(self, params, cache, token, pos, page_table=None):
+        """One decode step over the cache, in place."""
+        return registry.decode_cached(params, self.cfg, cache, token, pos,
+                                      page_table=page_table)
+
+    def backed(self, slot: int, write_pos: int) -> bool:
+        """Is ``write_pos`` already backed for ``slot``?"""
+        return True
+
+    @property
+    def has_free(self) -> bool:
+        """True while a decode write can still be backed."""
+        return True
+
+    def page_table(self) -> Optional[np.ndarray]:
+        """The host page table the next dispatch sends to the device, or
+        None for the contiguous layout."""
+        return None
+
+    def prefill_pages(self, slot: int, n_tokens: int,
+                      bucket_len: Optional[int]) -> Optional[np.ndarray]:
+        """Physical destinations of a prompt's logical pages, or None for
+        the contiguous layout."""
+        return None
+
+    def note_step(self) -> None:
+        """Record one dispatch's occupancy."""
+
+    def stats(self) -> dict:
+        """Layout statistics."""
+        return {"paged": self.paged}
+
+
+class ContiguousCacheManager(CacheManager):
+    """Every slot permanently owns one stripe of the cache: ``max_seq``
+    rows, or a ``window``-row ring for a sliding-window config."""
+
+    def init(self) -> dict:
+        """A fresh zeroed device cache."""
+        return registry.init_cache(self.cfg, self.slots, self.max_seq,
+                                   self.device)
+
+    def write(self, cache, kv, *, slot=None, pages=None):
+        """Write one request's prefill cache into its slot, in place."""
+        return registry.write_cached(self.cfg, cache, kv, slot=slot)
+
+
+class PagedCacheManager(CacheManager):
     """A global ``[num_pages + 1, page_size, ...]`` block pool (physical
     page 0 is the trap page) plus per-slot page tables. ``num_pages``
     defaults to full subscription, ``slots * max_seq / page_size``."""
+
+    paged = True
 
     def __init__(self, cfg, slots: int, max_seq: int, device, *,
                  page_size: int = 16, num_pages: Optional[int] = None):
@@ -35,8 +112,7 @@ class PagedCacheManager:
         if max_seq % page_size:
             raise ValueError(f"page_size={page_size} must divide "
                              f"max_seq={max_seq}")
-        self.cfg, self.slots, self.max_seq = cfg, slots, max_seq
-        self.device = device
+        super().__init__(cfg, slots, max_seq, device)
         self.page_size = page_size
         self.pages_per_slot = max_seq // page_size
         if num_pages is None:
@@ -79,15 +155,10 @@ class PagedCacheManager:
         return None
 
     # -- device side --------------------------------------------------------
-    def write(self, cache, kv, pages: torch.Tensor):
+    def write(self, cache, kv, *, slot=None, pages=None):
         """Scatter one request's prefill cache into its pages, in place."""
-        return registry.write_pages(self.cfg, cache, kv, pages,
-                                    self.page_size)
-
-    def decode(self, params, cache, token, pos, page_table):
-        """One decode step over the pool, in place."""
-        return registry.decode_cached(params, self.cfg, cache, token, pos,
-                                      page_table=page_table)
+        return registry.write_cached(self.cfg, cache, kv, pages=pages,
+                                     page_size=self.page_size)
 
     # -- dispatch-loop queries ----------------------------------------------
     def backed(self, slot: int, write_pos: int) -> bool:
@@ -131,21 +202,28 @@ class PagedCacheManager:
 @dataclasses.dataclass(frozen=True)
 class CacheConfig:
     """Declarative cache-manager choice, resolved against the engine's
-    (cfg, slots, max_seq, device). ``num_pages=None`` fully subscribes."""
+    (cfg, slots, max_seq, device). ``paged=None`` picks the paged pool
+    where the architecture can page (``registry.paged_ok``), else the
+    contiguous cache; ``paged=True`` for one that cannot raises.
+    ``num_pages=None`` fully subscribes."""
 
+    paged: Optional[bool] = None
     page_size: int = 16
     num_pages: Optional[int] = None
 
     def build(self, cfg, slots: int, max_seq: int,
-              device) -> PagedCacheManager:
+              device) -> CacheManager:
         """The manager this config describes."""
-        return PagedCacheManager(cfg, slots, max_seq, device,
-                                 page_size=self.page_size,
-                                 num_pages=self.num_pages)
+        paged = registry.paged_ok(cfg) if self.paged is None else self.paged
+        if paged:
+            return PagedCacheManager(cfg, slots, max_seq, device,
+                                     page_size=self.page_size,
+                                     num_pages=self.num_pages)
+        return ContiguousCacheManager(cfg, slots, max_seq, device)
 
 
 def make_cache_manager(spec, cfg, slots: int, max_seq: int,
-                       device) -> PagedCacheManager:
+                       device) -> CacheManager:
     """Resolve ``None`` (defaults), a ``CacheConfig``, or a ready
     instance."""
     if spec is None:

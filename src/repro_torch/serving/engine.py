@@ -2,14 +2,16 @@
 ``serving/engine.py``).
 
 A fixed pool of decode slots; requests join as slots free up. Each decode
-step is one pass of the model over every slot (``decode_step_paged`` then
-the greedy argmax and the stop conditions, all on the device) and ONE
+step is one pass of the model over every slot (``decode_step_paged`` on
+the paged pool or ``decode_step`` on the contiguous cache, then the
+greedy argmax and the stop conditions, all on the device) and ONE
 batched ``(token-or-minus-one, done)`` copy to the host. Step *k*'s copy
 is started right after its dispatch and read only after step *k+1* has
 been dispatched, so the host never waits on the step it just queued
 (``readbacks == steps``). Prefill admission pads prompts to pow2 buckets
-and takes the logits at the true length, then scatters the prompt's K/V
-into its pages.
+(at most the cache's rows: a sliding-window config prefills a prompt
+longer than its window at its exact length) and takes the logits at the
+true length, then writes the prompt's K/V into its pages or its slot.
 
 The host keeps an exact mirror of each slot's device position, emit count
 and activity: the stop conditions are deterministic, so the page
@@ -164,13 +166,18 @@ class Engine:
         self.finished.append(req)
 
     def _bucket_len(self, n: int) -> Optional[int]:
-        """Pow2 padded prompt length, or None for an exact-length prefill."""
+        """Pow2 padded prompt length, at most the cache's rows per slot
+        (``max_seq``, or the window); None for an exact-length prefill,
+        as for a prompt longer than that."""
         if not self._pad_ok:
+            return None
+        cap = min(self.max_seq, self.cfg.window or self.max_seq)
+        if n > cap:
             return None
         b = 1
         while b < n:
             b *= 2
-        return min(b, self.max_seq)
+        return min(b, cap)
 
     def _admit(self) -> None:
         for i, slot in enumerate(self.slots):
@@ -183,7 +190,9 @@ class Engine:
             if not self.cm.alloc(i, n):
                 return             # head-of-line: admission waits for pages
             self.scheduler.pop()
-            pages = self._upload(self.cm.prefill_pages(i, n, b))
+            pages = self.cm.prefill_pages(i, n, b)
+            if pages is not None:
+                pages = self._upload(pages)
             if b is not None and b > n:
                 prompt = np.concatenate([prompt,
                                          np.zeros(b - n, prompt.dtype)])
@@ -199,15 +208,16 @@ class Engine:
             slot.dactive = True
 
     def _prefill(self, i: int, req: Request, prompt: np.ndarray, n: int,
-                 pages: torch.Tensor) -> torch.Tensor:
-        """Prefill one prompt, write its pages and reset slot ``i``'s
-        device state (the body of the JAX engine's ``_make_admit``).
-        Returns the first token (a device scalar)."""
+                 pages: Optional[torch.Tensor]) -> torch.Tensor:
+        """Prefill one prompt, write its pages (paged) or slot ``i``
+        (contiguous) and reset slot ``i``'s device state (the body of the
+        JAX engine's ``_make_admit``). Returns the first token (a device
+        scalar)."""
         tokens = torch.tensor(prompt[None], dtype=torch.long,
                               device=self.device)
         logits, kv = registry.prefill(self.params, self.cfg, tokens,
                                       length=n if self._pad_ok else None)
-        self.cache = self.cm.write(self.cache, kv, pages)
+        self.cache = self.cm.write(self.cache, kv, slot=i, pages=pages)
         tok0 = torch.argmax(logits[0, :self.cfg.vocab]).to(I32)
         self._token[i] = tok0
         self._pos[i] = n
@@ -248,7 +258,9 @@ class Engine:
         """Dispatch one decode step over every slot (the greedy body of
         the JAX engine's ``_make_step``); returns the device ``(emit_tok,
         done)`` pair (emit -1 where the slot was idle)."""
-        table = self._upload(self.cm.page_table())
+        table = self.cm.page_table()
+        if table is not None:
+            table = self._upload(table)
         logits, self.cache = self.cm.decode(self.params, self.cache,
                                             self._token, self._pos, table)
         nxt = torch.argmax(logits[:, :self.cfg.vocab], dim=-1).to(I32)

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import costmodel
 from repro_torch.kernels import flash_decode, fused_add_rmsnorm, ops, ref
 from repro_torch.kernels import merge_attn_states, registry, silu_and_mul
 
@@ -232,6 +233,133 @@ def test_silu_and_mul_genome_matches_plain(dev, genome, dtype, rows, d):
     out = silu_and_mul.silu_and_mul(x, genome)
     torch.cuda.synchronize()
     _close(out, silu_and_mul.plain(genome, x), dtype)
+
+
+def flash_case(b, hq, hkv, dh, s, dtype, dev, seed=0, lens=None):
+    """q, k, v and ragged kv_len with 0, 1 and s (or ``lens``)."""
+    rng = np.random.default_rng(seed)
+    if lens is None:
+        lens = rng.integers(1, s + 1, size=b)
+        lens[:3] = (0, 1, s)[:b]
+    return (_randn((b, hq, dh), dtype, dev, seed + 1),
+            _randn((b, s, hkv, dh), dtype, dev, seed + 2),
+            _randn((b, s, hkv, dh), dtype, dev, seed + 3),
+            torch.tensor(lens, dtype=torch.int32, device=dev))
+
+
+# (b, hq, hkv, dh, s): h2o-danube's group 4 at 80, qwen2's group 7 at 64,
+# a ragged 100 (one element at a time, no 16-byte vectors) and group 1
+FLASH_SHAPES = [(8, 32, 8, 80, 1000), (8, 14, 2, 64, 512),
+                (3, 4, 2, 100, 77), (4, 16, 16, 128, 300)]
+
+
+@pytest.mark.parametrize("shape", FLASH_SHAPES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("chunk", [16, 64, 128])
+@pytest.mark.parametrize("mask_oob,rcp",
+                         list(itertools.product((False, True), repeat=2)))
+def test_flash_decode_matches_plain(dev, shape, dtype, chunk, mask_oob,
+                                    rcp):
+    """Every bool combination at several chunks, against the same
+    genome's plain version; kv_len 0, 1 and s included."""
+    genome = flash_decode.FlashDecodeVariant(
+        name="case", chunk=chunk, use_reciprocal=rcp, mask_oob=mask_oob)
+    b, hq, hkv, dh, s = shape
+    vec = costmodel.vector_elems(dh, dtype.itemsize)
+    _, smem = flash_decode.tile_layout(min(chunk, s), dh, hq // hkv,
+                                       dtype.itemsize, vec)
+    if smem > flash_decode.SMEM_PER_BLOCK:
+        pytest.skip("this chunk does not fit at this width (the cost model "
+                    "screens it)")
+    q, k, v, lens = flash_case(*shape, dtype, dev)
+    n0 = flash_decode.flash_decode_attention.launches
+    got = flash_decode.flash_decode_attention(q, k, v, kv_len=lens,
+                                              variant=genome)
+    torch.cuda.synchronize()
+    assert flash_decode.flash_decode_attention.launches == n0 + 1
+    _close(got, flash_decode.plain(genome, q, k, v, lens, dh ** -0.5),
+           dtype)
+    if mask_oob:
+        assert (got[0] == 0).all()                  # kv_len 0: no row
+
+
+def test_flash_decode_reads_misaligned_caches_and_clamps_kv_len(dev):
+    """A cache that starts off a 16-byte boundary takes the element path;
+    kv_len past s reads s rows."""
+    b, hq, hkv, dh, s = 2, 8, 2, 64, 90
+    q, k, v, _ = flash_case(b, hq, hkv, dh, s, torch.bfloat16, dev)
+    n = k.numel()
+    k1 = torch.empty(n + 1, dtype=k.dtype, device=dev)[1:].view(k.shape)
+    v1 = torch.empty(n + 1, dtype=v.dtype, device=dev)[1:].view(v.shape)
+    k1.copy_(k)
+    v1.copy_(v)
+    lens = torch.tensor([s + 7, 33], dtype=torch.int32, device=dev)
+    got = ops.flash_decode_attention(q, k1, v1, kv_len=lens)
+    want = ops.flash_decode_attention(q, k, v, kv_len=lens.clamp(max=s))
+    torch.cuda.synchronize()
+    _close(got, want, torch.bfloat16)
+    _close(got, ref.flash_decode_attention(q, k, v, kv_len=lens),
+           torch.bfloat16)
+
+
+def test_flash_decode_on_the_card_launches_or_raises(dev, monkeypatch):
+    """A CUDA tensor never takes the plain version: it launches the
+    kernel, or raises before any launch on what the kernel cannot take."""
+    def refuse(*a, **kw):
+        raise AssertionError("a CUDA tensor took the plain version")
+
+    monkeypatch.setattr(flash_decode, "plain", refuse)
+    q, k, v, lens = flash_case(2, 8, 2, 80, 64, torch.bfloat16, dev)
+    fn = flash_decode.flash_decode_attention
+    n0 = fn.launches
+    fn(q, k, v, kv_len=lens)
+    torch.cuda.synchronize()
+    assert fn.launches == n0 + 1
+    wide = flash_case(2, 8, 8, 128, 300, torch.float32, dev)
+    bad = [
+        ((q, k.transpose(1, 2), v), dict(kv_len=lens)),     # not [b,s,h,d]
+        ((q, k[:, ::2], v[:, ::2]), dict(kv_len=lens)),     # strided
+        ((q, k.float(), v), dict(kv_len=lens)),             # mixed dtypes
+        ((q, k, v), dict(kv_len=lens.long())),              # int64 lengths
+        ((q.half(), k.half(), v.half()), dict(kv_len=lens)),  # fp16
+        ((q, k, v), dict(kv_len=lens,
+                         variant=dataclasses.replace(
+                             flash_decode.OPTIMIZED, chunk=0))),
+        (wide[:3], dict(kv_len=wide[3],                     # > 227 KB
+                        variant=dataclasses.replace(
+                            flash_decode.OPTIMIZED, chunk=256))),
+    ]
+    for args, kw in bad:
+        with pytest.raises((ValueError, TypeError)):
+            fn(*args, **kw)
+    assert fn.launches == n0 + 1
+
+
+def test_windowed_decode_on_the_card_matches_the_cpu(dev):
+    """The h2o-danube smoke config in fp32: a prompt past the window, then
+    decode steps that wrap the ring, card against CPU."""
+    from repro_torch import configs
+    from repro_torch.models import registry as models, transformer
+    cfg = dataclasses.replace(configs.smoke("h2o-danube-1.8b"),
+                              dtype="float32")
+    gpu = models.init_params(cfg, seed=0)
+    cpu = transformer.cast_params(gpu, cfg, torch.device("cpu"))
+    toks = torch.tensor(np.random.default_rng(0).integers(0, cfg.vocab,
+                                                          (1, 100)))
+    outs = []
+    for params, d in ((gpu, dev), (cpu, torch.device("cpu"))):
+        lg, kv = models.prefill(params, cfg, toks.to(d))
+        cache = models.init_cache(cfg, 2, 192, d)
+        models.write_slot(cfg, cache, kv, 1)
+        logits = [lg.cpu()]
+        for t in range(3):
+            pos = torch.tensor([t, 100 + t], dtype=torch.int32, device=d)
+            tok = torch.tensor([3, 5], dtype=torch.int32, device=d)
+            lg, cache = models.decode_cached(params, cfg, cache, tok, pos)
+            logits.append(lg.cpu())
+        outs.append(logits)
+    for g, c in zip(*outs):
+        _close(g, c, torch.float32)
 
 
 def test_reintegration_changes_what_the_wrappers_launch(dev, monkeypatch):

@@ -28,14 +28,15 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels import flash_decode as jfd
 from repro.kernels import fused_add_rmsnorm as jrms
 from repro.kernels import merge_attn_states as jmerge
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels import silu_and_mul as jsilu
 from repro_torch.kernels import _build, ops, ref, registry
-from repro_torch.kernels import fused_add_rmsnorm, merge_attn_states
-from repro_torch.kernels import silu_and_mul
+from repro_torch.kernels import flash_decode, fused_add_rmsnorm
+from repro_torch.kernels import merge_attn_states, silu_and_mul
 
 REPO = Path(__file__).resolve().parents[1]
 DTYPES = ["float32", "bfloat16"]
@@ -308,6 +309,83 @@ def test_silu_and_mul_genome_matches_pallas(genome, dtype):
           silu_and_mul.silu_and_mul(xt, variant), dtype)
 
 
+FLASH_GENOMES = {
+    "baseline": flash_decode.BASELINE,
+    "optimized": flash_decode.OPTIMIZED,
+    "chunk32_divide": flash_decode.FlashDecodeVariant(
+        name="chunk32_divide", chunk=32, use_reciprocal=False,
+        mask_oob=True),
+}
+
+
+def flash_case(b, hq, hkv, dh, s, seed):
+    """numpy q, k, v and kv_len from 1 to s (1 first, s last)."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, hq, dh))
+    k, v = rng.standard_normal((2, b, s, hkv, dh))
+    lens = np.linspace(1, s, b).astype(np.int32)
+    return q, k, v, lens
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(2, 8, 2, 80, 200), (3, 7, 1, 64, 150)],
+                         ids=["d80_group4", "d64_group7"])
+@pytest.mark.parametrize("genome", sorted(FLASH_GENOMES))
+def test_flash_decode_genome_matches_pallas(genome, shape, dtype):
+    """Group 4 at head_dim 80 (h2o-danube-1.8b) and group 7 at 64
+    (qwen2-0.5b); kv_len 1 and s; s not a multiple of the chunk."""
+    variant = FLASH_GENOMES[genome]
+    q, k, v, lens = flash_case(*shape, seed=shape[-1])
+    (qj, qt), (kj, kt), (vj, vt) = both(q, dtype), both(k, dtype), \
+        both(v, dtype)
+    lj, lt = both(lens, dtype)
+    want = jit(jfd.flash_decode_attention, variant=jax_genome(jfd, variant),
+               interpret=True)(qj, kj, vj, kv_len=lj)
+    got = flash_decode.flash_decode_attention(qt, kt, vt, kv_len=lt,
+                                              variant=variant)
+    assert got.dtype == TORCH[dtype] and got.shape == q.shape
+    close(want, got, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_decode_return_lse_matches_pallas(dtype):
+    q, k, v, lens = flash_case(2, 8, 2, 80, 100, seed=5)
+    (qj, qt), (kj, kt), (vj, vt) = both(q, dtype), both(k, dtype), \
+        both(v, dtype)
+    lj, lt = both(lens, dtype)
+    oj, sj = jit(jfd.flash_decode_attention, interpret=True,
+                 return_lse=True)(qj, kj, vj, kv_len=lj)
+    ot, st = ops.flash_decode_attention(qt, kt, vt, kv_len=lt,
+                                        return_lse=True)
+    close(oj, ot, dtype)
+    assert st.dtype == torch.float32 and st.shape == (2, 8)
+    close(sj, st, "float32")
+
+
+def test_flash_decode_plain_follows_the_pallas_grid_at_the_edges():
+    """kv_len 0 and past s: the baseline's masked chunks still count
+    (V of the zero padding included), ``mask_oob`` visits none, and a
+    length past s reads s rows."""
+    q, k, v, _ = flash_case(2, 4, 2, 16, 40, seed=6)
+    lens = np.array([0, 40], np.int32)
+    (qj, qt), (kj, kt), (vj, vt) = both(q, "float32"), both(k, "float32"), \
+        both(v, "float32")
+    lj, lt = both(lens, "float32")
+    for variant in (flash_decode.BASELINE, FLASH_GENOMES["chunk32_divide"]):
+        want = jit(jfd.flash_decode_attention,
+                   variant=jax_genome(jfd, variant),
+                   interpret=True)(qj, kj, vj, kv_len=lj)
+        close(want, flash_decode.flash_decode_attention(
+            qt, kt, vt, kv_len=lt, variant=variant), "float32")
+    zero = flash_decode.flash_decode_attention(
+        qt, kt, vt, kv_len=lt, variant=flash_decode.OPTIMIZED)
+    assert (zero[0] == 0).all()
+    past = flash_decode.flash_decode_attention(
+        qt, kt, vt, kv_len=torch.tensor([41, 99], dtype=torch.int32),
+        variant=flash_decode.OPTIMIZED)
+    torch.testing.assert_close(past[1], zero[1])
+
+
 def test_plain_genomes_keep_their_arithmetic_order():
     """The plain versions differ where the genome says the arithmetic
     does: the two-pass form normalises the rounded r', bf16 compute
@@ -371,6 +449,9 @@ def test_cpu_tensors_never_touch_the_kernel_library(monkeypatch):
                                      kv_len=torch.from_numpy(lens))
     v, s = torch.randn(3, 2, 64), torch.randn(3, 2)
     ops.merge_attn_states_lse(v, s, v, s)
+    q, k, v, lens = flash_case(2, 8, 2, 80, 30, seed=0)
+    t = [torch.tensor(a, dtype=torch.float32) for a in (q, k, v)]
+    ops.flash_decode_attention(*t, kv_len=torch.from_numpy(lens))
     for name in registry.registered_kernels():
         space = registry.get_space(name)
         case = space.make_inputs(space.suite_shapes[-1], seed=0,
@@ -395,8 +476,8 @@ def test_variant_record_names_known_kernels(monkeypatch):
     (``paged_flash_decode`` has none until its space is ported)."""
     monkeypatch.setattr(ops, "_OVERRIDES", {})
     names = registry.registered_kernels()
-    assert names == ("fused_add_rmsnorm", "merge_attn_states_lse",
-                     "silu_and_mul")
+    assert names == ("flash_decode", "fused_add_rmsnorm",
+                     "merge_attn_states_lse", "silu_and_mul")
     for name in names:
         assert ops.get_variant(name) == registry.get_space(name).shipped
         assert ops.get_variant(name).name == "astra_opt"

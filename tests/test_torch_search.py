@@ -1,7 +1,9 @@
 """The agent loop of the PyTorch port against the JAX package, on the CPU.
 
 * Registry parity: the port registers the JAX package's three paper
-  kernels with the same knobs, genomes and suite shapes.
+  kernels with the same knobs, genomes and suite shapes, and the
+  contiguous decode attention (``flash_decode``) with JAX's knobs but a
+  ``chunk`` range the card's shared memory can hold.
 * Policy parity: both packages' planners make the same moves from the
   same genomes, verdicts, profile signals and histories.
 * Strategy parity: one toy space, built in each package from one
@@ -33,8 +35,8 @@ from repro_torch.core import (CodingAgent, PlanningAgent, ProfilingAgent,
                               optimize_single_agent, reintegrate)
 from repro_torch.core import agents, policy
 from repro_torch.kernels import _build, ops, registry
-from repro_torch.kernels import (fused_add_rmsnorm, merge_attn_states,
-                                  silu_and_mul)
+from repro_torch.kernels import (flash_decode, fused_add_rmsnorm,
+                                  merge_attn_states, silu_and_mul)
 from repro_torch.kernels.registry import (KernelSpace, Knob, TestCase,
                                           clear_suite_memos, get_space,
                                           oracle_outputs, suite_tests)
@@ -76,7 +78,7 @@ def knob_tuple(space):
 
 @pytest.mark.parametrize("kernel", PAPER)
 def test_registry_matches_the_jax_space(kernel):
-    assert registry.registered_kernels() == PAPER
+    assert registry.registered_kernels() == ("flash_decode",) + PAPER
     mine, ref = get_space(kernel), jregistry.get_space(kernel)
     assert knob_tuple(mine) == knob_tuple(ref)
     assert dataclasses.asdict(mine.baseline) == \
@@ -85,6 +87,106 @@ def test_registry_matches_the_jax_space(kernel):
         dataclasses.asdict(ref.shipped)
     assert mine.suite_shapes == ref.suite_shapes
     assert type(mine.baseline).__name__ == type(ref.baseline).__name__
+
+
+def test_flash_decode_space_is_jax_but_the_chunk_range():
+    """The same knobs, flags and suite; ``chunk`` runs 16..256 (two K and
+    V tiles in 227 KB of shared memory) where JAX's ran 128..4096 (a TPU
+    core's VMEM), and both shipped genomes take chunk 64."""
+    mine, ref = get_space("flash_decode"), jregistry.get_space("flash_decode")
+    ours, theirs = knob_tuple(mine), knob_tuple(ref)
+    assert [k[0] for k in ours] == [k[0] for k in theirs]
+    for a, b in zip(ours, theirs):
+        if a[0] == "chunk":
+            assert (a[2], a[3], b[2], b[3]) == (16, 256, 128, 4096)
+        else:
+            assert a == b
+    for genome in ("baseline", "shipped"):
+        a = dataclasses.asdict(getattr(mine, genome))
+        b = dataclasses.asdict(getattr(ref, genome))
+        assert a.pop("chunk") == 64 and b.pop("chunk") in (512, 1024)
+        assert a == b
+    assert mine.suite_shapes == ref.suite_shapes
+    assert type(mine.baseline).__name__ == type(ref.baseline).__name__
+
+
+def test_flash_decode_cost_screens_tiles_that_do_not_fit():
+    """Two stages of K and V tiles: chunk 64 fits every suite shape; 128
+    does not fit fp32 at head_dim 128, and 256 fits only bf16 at
+    head_dim 64 among them, and the h2o-danube decode shape (head_dim 80,
+    bf16)."""
+    big = dataclasses.replace(flash_decode.OPTIMIZED, chunk=256)
+    for shape in flash_decode.SUITE_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            flash_decode.cost(flash_decode.OPTIMIZED, dtype=dtype, **shape)
+            if shape["head_dim"] == 64 and dtype == torch.bfloat16:
+                flash_decode.cost(big, dtype=dtype, **shape)
+                continue
+            with pytest.raises(costmodel.Infeasible):
+                flash_decode.cost(big, dtype=dtype, **shape)
+    wide = dict(flash_decode.SUITE_SHAPES[0], dtype=torch.float32)
+    with pytest.raises(costmodel.Infeasible):
+        flash_decode.cost(dataclasses.replace(flash_decode.BASELINE,
+                                              chunk=128), **wide)
+    h2o = dict(batch=8, q_heads=32, kv_heads=8, head_dim=80, seq=4096,
+               dtype=torch.bfloat16)
+    c = flash_decode.cost(dataclasses.replace(flash_decode.OPTIMIZED,
+                                              chunk=256), **h2o)
+    assert c.smem_bytes <= costmodel.SMEM_PER_BLOCK
+    # the byte bound of the h2o decode shape, all rows valid: 25.0 us
+    base = flash_decode.cost(flash_decode.BASELINE, **h2o)
+    assert base.mem_s * 1e6 == pytest.approx(25.04, abs=0.05)
+    # mask_oob moves only the chunks below kv_len (33 of 64 here)
+    half = flash_decode.cost(flash_decode.OPTIMIZED, mean_kv_len=2048, **h2o)
+    assert half.total("dram_bytes") < 0.52 * base.total("dram_bytes")
+
+
+def test_flash_decode_infeasible_move_is_screened_never_validated():
+    space = dataclasses.replace(
+        get_space("flash_decode"),
+        suite_shapes=({"batch": 2, "q_heads": 8, "kv_heads": 8,
+                       "head_dim": 128, "seq": 300},))
+    tests = suite_tests(space, cpu_tester(dtypes=(torch.float32,)))
+    ev = TieredEvaluator()
+    res = ev.evaluate(space, dataclasses.replace(space.baseline, chunk=256),
+                      tests, testing=RefusingTester(device="cpu"),
+                      profiling=ProfilingAgent(), cache=EvalCache())
+    assert res.screened and not res.validated
+    assert ev.stats.screened_infeasible == 1
+
+
+def test_flash_decode_launch_key_follows_every_knob():
+    """At the suite shapes every knob move launches other code; past the
+    cache's rows a larger chunk launches the same."""
+    space = get_space("flash_decode")
+    base = space.baseline
+    for shape in flash_decode.SUITE_SHAPES:
+        info = dict(shape, dtype=torch.bfloat16, mean_kv_len=100.0)
+        keys = {space.launch_key(base, **info)}
+        for knob in space.knobs:
+            value = 2 * base.chunk if knob.kind == "pow2" \
+                else not getattr(base, knob.name)
+            keys.add(space.launch_key(space.mutate(base, knob, value),
+                                      **info))
+        assert len(keys) == 1 + len(space.knobs)
+    short = dict(flash_decode.SUITE_SHAPES[0], seq=50, dtype=torch.float32)
+    assert space.launch_key(base, **short) == space.launch_key(
+        dataclasses.replace(base, chunk=256), **short)
+
+
+def test_flash_decode_search_on_the_analytic_backend():
+    """Algorithm 1 on a reduced flash_decode suite: the planner moves the
+    flags toward their targets and the best genome is correct."""
+    space = dataclasses.replace(
+        get_space("flash_decode"),
+        suite_shapes=({"batch": 2, "q_heads": 8, "kv_heads": 2,
+                       "head_dim": 80, "seq": 200},
+                      {"batch": 3, "q_heads": 7, "kv_heads": 1,
+                       "head_dim": 64, "seq": 150}))
+    log = optimize(space, rounds=3, device="cpu")
+    assert len(log.entries) == 4 and log.best().correct
+    assert log.speedup() >= 1.0
+    assert all(e.correct for e in log.entries)
 
 
 @pytest.mark.parametrize("kernel", PAPER)

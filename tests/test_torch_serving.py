@@ -219,12 +219,13 @@ def test_serve_command_runs_the_reduced_config_on_cpu():
     out = serve.run(argparse.Namespace(
         arch=ARCH, smoke=True, device="cpu", requests=5, slots=2,
         max_seq=64, page_size=16, min_prompt=3, max_prompt=30, max_new=4,
-        seed=0, profile=False, rows=0))
-    assert out["all_done"] and out["requests"] == 5
+        crossing=0, seed=0, profile=False, rows=0))
+    assert out["all_done"] and out["requests"] == 5 and out["paged"]
     assert out["readbacks"] == out["steps"] > 0
     assert out["launches"] == {"fused_add_rmsnorm": 0, "silu_and_mul": 0,
                                "paged_flash_decode": 0,
-                               "merge_attn_states_lse": 0}
+                               "merge_attn_states_lse": 0,
+                               "flash_decode": 0}
 
 
 def test_seeded_init_is_reproducible_and_shaped():
