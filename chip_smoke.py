@@ -13,16 +13,19 @@ Phases, each of which fails the run (non-zero exit) on any error:
    stated; each kernel's time beside its bound and beside the plain
    version's time, and, for the contiguous decode attention, beside one
    ``scaled_dot_product_attention`` call on the same inputs (the port
-   never calls it). The shipped genomes, and the baseline genomes.
+   never calls it). The shipped genomes, and the baseline genomes; the
+   split-KV decode kernels' launch plans (splits, grid) first, and after
+   the timings both decode kernels checked for every genome of their
+   flags at kv_len 0, 1, the cache's rows and each split boundary +- 1.
 3. Tune: the Astra agent loop (``optimize_all``, greedy, 5 rounds) on the
-   paper's three kernels and the contiguous decode attention
-   (``flash_decode``), tested on the card in fp32 and bf16 at the JAX
-   suite shapes and timed with CUDA events (L2 flushed before every timed
-   launch). It prints each Log, paper Table 2 (baseline vs best, both
-   re-timed and re-validated on the card at every suite shape; the
-   geomean over the paper's three), the same row for ``flash_decode``,
-   and Table 3 (the single-agent baseline timed the same way), then
-   reintegrates the best genomes.
+   paper's three kernels and both decode attentions (``flash_decode``,
+   ``paged_flash_decode``), tested on the card in fp32 and bf16 at the
+   JAX suite shapes and timed with CUDA events (L2 flushed before every
+   timed launch). It prints each Log, paper Table 2 (baseline vs best,
+   both re-timed and re-validated on the card at every suite shape; the
+   geomean over the paper's three), the same rows for the two decode
+   kernels, and Table 3 (the single-agent baseline timed the same way),
+   then reintegrates the best genomes.
 4. Serve: ``LLMEngine`` at full width in bf16 with seeded random weights,
    16 greedy requests of 32 tokens each: qwen2-0.5b from the paged pool,
    once with the shipped genomes and once with the reintegrated ones;
@@ -222,15 +225,20 @@ def kernel_cases():
             n_tab = int(sum(-(-int(n) // page) for n in lens))
             nbytes = (2 * b * hq * dh * es + 2 * rows * hkv * dh * es
                       + 4 * n_tab + 4 * b)
-            cases.append((
-                "paged_flash_decode",
-                f"b={b} hq/hkv={hq}/{hkv} d={dh} page={page} "
-                f"kv_len={lens.tolist()}", dtype,
-                lambda q=q, k=k, v=v, t=table, n=lens:
-                    ops.paged_flash_decode_attention(q, k, v, t, kv_len=n),
-                lambda q=q, k=k, v=v, t=table, n=lens:
-                    ref.paged_flash_decode_attention(q, k, v, t, kv_len=n),
-                nbytes, 4 * rows * hq * dh, False, hq == 14, None))
+            for g in (ops.get_variant("paged_flash_decode"),
+                      fd.PAGED_BASELINE):
+                cases.append((
+                    "paged_flash_decode",
+                    f"b={b} hq/hkv={hq}/{hkv} d={dh} page={page} "
+                    f"kv_len={lens.tolist()} {g.describe()}", dtype,
+                    lambda q=q, k=k, v=v, t=table, n=lens, g=g:
+                        fd.paged_flash_decode_attention(q, k, v, t,
+                                                        kv_len=n, variant=g),
+                    lambda q=q, k=k, v=v, t=table, n=lens, g=g:
+                        fd.paged_plain(g, q, k, v, t, n,
+                                       q.shape[-1] ** -0.5),
+                    nbytes, 4 * rows * hq * dh, False,
+                    hq == 14 and g is not fd.PAGED_BASELINE, None))
         # the h2o-danube decode shape (a full 4096-row ring) and qwen2's
         # shape on a contiguous 512-row cache (ragged lengths)
         for b, hq, hkv, dh, s, lens in (
@@ -295,8 +303,101 @@ def cold_ms(fn) -> float:
     return float(np.median(time_launches(fn, REPS_COLD))) / 1e3
 
 
+def decode_plans():
+    """The launch plan (splits, steps a split, grid, shared memory) of each
+    decode-attention call the kernel phase times."""
+    from repro_torch.kernels import flash_decode as fd
+    for dtype in (torch.bfloat16, torch.float32):
+        for hq, hkv, dh in ((14, 2, 64), (32, 8, 128)):
+            plan = fd.paged_launch_plan(batch=8, q_heads=hq, kv_heads=hkv,
+                                        head_dim=dh, page=16,
+                                        n_pt=SERVE["max_seq"] // 16,
+                                        dtype=dtype)
+            log(f"  plan paged_flash_decode {str(dtype)[6:]} {hq}/{hkv} "
+                f"d={dh}: splits {plan['splits']} x "
+                f"{plan['steps_per_split']} steps of {fd.PAGED_STEP} rows, "
+                f"grid {plan['grid']}, {plan['smem']} B shared")
+        for b, hq, hkv, dh, s in ((8, 32, 8, 80, 4096), (8, 14, 2, 64, 512)):
+            for g in (fd.OPTIMIZED, fd.BASELINE):
+                plan = fd.launch_plan(g, batch=b, q_heads=hq, kv_heads=hkv,
+                                      head_dim=dh, seq=s, dtype=dtype)
+                log(f"  plan flash_decode {str(dtype)[6:]} {hq}/{hkv} d={dh}"
+                    f" s={s} {g.name}: splits {plan['splits']} x "
+                    f"{plan['steps_per_split']} chunks of {plan['chunk']}, "
+                    f"grid {plan['grid']}, {plan['smem']} B shared")
+
+
+def _edges(plan, rows, step):
+    """kv_len 0, 1, the rows and every split boundary - 1, + 0, + 1."""
+    per = plan["steps_per_split"] * step
+    edges = {0, 1, rows}
+    for sp in range(1, plan["splits"]):
+        edges.update((sp * per - 1, sp * per, sp * per + 1))
+    return sorted(e for e in edges if 0 <= e <= rows)
+
+
+def phase_edges() -> bool:
+    """Both split-KV kernels against their plain versions, every genome of
+    their flags, both dtypes, at kv_len 0, 1, the cache's rows and each
+    split boundary +- 1 of the serve shapes (checked, not timed)."""
+    import itertools
+    from repro_torch.kernels import flash_decode as fd
+    ok, n = True, 0
+    flags = list(itertools.product((False, True), repeat=2))
+    for dtype in (torch.bfloat16, torch.float32):
+        for b, hq, hkv, dh, s in ((8, 32, 8, 80, 4096), (8, 14, 2, 64, 512)):
+            plan = fd.launch_plan(fd.OPTIMIZED, batch=b, q_heads=hq,
+                                  kv_heads=hkv, head_dim=dh, seq=s,
+                                  dtype=dtype)
+            lens = _edges(plan, s, plan["chunk"])
+            for i in range(0, len(lens), b):
+                part = (lens[i:i + b] + [s] * b)[:b]
+                q, k, v, n_ = flash_inputs(b, hq, hkv, dh, s, part, dtype)
+                for mo, rcp in flags:
+                    g = dataclasses.replace(fd.OPTIMIZED, mask_oob=mo,
+                                            use_reciprocal=rcp)
+                    got = fd.flash_decode_attention(q, k, v, kv_len=n_,
+                                                    variant=g)
+                    good = compare(got, fd.plain(g, q, k, v, n_,
+                                                 dh ** -0.5))[2]
+                    ok &= good
+                    n += 1
+                    if not good:
+                        log(f"  MISMATCH flash_decode {dtype} s={s} "
+                            f"kv_len={part} {g.describe()}")
+        for hq, hkv, dh in ((14, 2, 64), (32, 8, 128)):
+            b, page, n_pt = 8, 16, SERVE["max_seq"] // 16
+            plan = fd.paged_launch_plan(batch=b, q_heads=hq, kv_heads=hkv,
+                                        head_dim=dh, page=page, n_pt=n_pt,
+                                        dtype=dtype)
+            lens = _edges(plan, n_pt * page, fd.PAGED_STEP)
+            q, k, v, table, n_ = paged_inputs(b, hq, hkv, dh, page, n_pt,
+                                              dtype)
+            for i in range(0, len(lens), b):
+                part = (lens[i:i + b] + [n_pt * page] * b)[:b]
+                n_.copy_(torch.tensor(part, dtype=torch.int32))
+                for mo, rcp in flags:
+                    g = dataclasses.replace(fd.PAGED_OPTIMIZED, mask_oob=mo,
+                                            use_reciprocal=rcp)
+                    got = fd.paged_flash_decode_attention(q, k, v, table,
+                                                          kv_len=n_,
+                                                          variant=g)
+                    good = compare(got, fd.paged_plain(
+                        g, q, k, v, table, n_, dh ** -0.5))[2]
+                    ok &= good
+                    n += 1
+                    if not good:
+                        log(f"  MISMATCH paged_flash_decode {dtype} "
+                            f"{hq}/{hkv} kv_len={part} {g.describe()}")
+    torch.cuda.synchronize()
+    log(f"  kv_len edges: {n} calls over every genome's flags, "
+        f"{'all ok' if ok else 'MISMATCH'}")
+    return ok
+
+
 def phase_kernels(rows_out: dict) -> bool:
     ok = True
+    decode_plans()
     for name, label, dtype, kern, plain, nbytes, nops, l2_cold, main, \
             library in kernel_cases():
         got, want = kern(), plain()
@@ -351,7 +452,8 @@ def phase_tune() -> tuple[bool, dict, dict]:
     ops.reset_launch_counts()
     results = optimize_all(rounds=rounds, testing=testing,
                            profiling=profiling,
-                           kernels=PAPER_KERNELS + ("flash_decode",))
+                           kernels=PAPER_KERNELS + ("flash_decode",
+                                                    "paged_flash_decode"))
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     log(f"  optimize_all(rounds={rounds}, greedy): "
@@ -617,6 +719,7 @@ def main() -> int:
     log("phase 2: kernels against their plain versions on the card")
     rows: dict = {}
     ok2 = phase_kernels(rows)
+    ok2 &= phase_edges()
     phase_s["kernels"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     log("phase 3: tune (the Astra agent loop on the card)")

@@ -35,7 +35,8 @@ import dataclasses
 import math
 
 from repro_torch.device import (MAX_BLOCKS_PER_SM, MAX_THREADS,
-                                MAX_THREADS_PER_SM, SMEM_PER_BLOCK, SMS)
+                                MAX_THREADS_PER_SM, SMEM_PER_BLOCK,
+                                SMEM_PER_SM, SMS)
 
 # --- H100 SXM ---------------------------------------------------------------
 CLOCK_HZ = 1.98e9                  # boost clock
@@ -44,7 +45,6 @@ SM_BW = 4 * HBM_BW / SMS           # bytes/s one busy SM keeps in flight
 PEAK_FP32_FLOPS = 67e12            # CUDA cores, an FMA counted as 2
 ALU_RATE = PEAK_FP32_FLOPS / 2     # fp32 instructions/s
 SFU_RATE = 16 * SMS * CLOCK_HZ     # special-function instructions/s
-SMEM_PER_SM = 233_472              # 228 KB
 REGS_PER_SM = 65_536
 REGS = 32                          # per thread, what ptxas reports (20-52)
 SECTOR = 32                        # bytes per device-memory sector

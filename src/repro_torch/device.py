@@ -15,6 +15,8 @@ MAX_THREADS = 1024                  # per block
 MAX_THREADS_PER_SM = 2048
 MAX_BLOCKS_PER_SM = 32
 SMEM_PER_BLOCK = 232_448            # shared memory bytes a block (227 KB)
+SMEM_PER_SM = 233_472               # shared memory bytes an SM (228 KB)
+SMEM_RESERVED = 1_024               # of it, held back for each block
 
 
 def resident_blocks(threads: int) -> int:
@@ -23,6 +25,15 @@ def resident_blocks(threads: int) -> int:
     kernels give each row its own block up to this size, and stack rows
     in a block only past it."""
     return SMS * max(1, min(MAX_BLOCKS_PER_SM, MAX_THREADS_PER_SM // threads))
+
+
+def resident_blocks_smem(threads: int, smem: int, cap: int) -> int:
+    """Blocks of ``threads`` threads and ``smem`` bytes of shared memory
+    the card holds at once, at most ``cap`` an SM (a kernel's launch
+    bounds)."""
+    by_smem = SMEM_PER_SM // (smem + SMEM_RESERVED)
+    return SMS * max(1, min(cap, MAX_BLOCKS_PER_SM,
+                            MAX_THREADS_PER_SM // threads, by_smem))
 
 
 def resolve_device(device=None) -> torch.device:

@@ -40,10 +40,12 @@ SIGNATURES = {
                            _I, _P),
     "repro_merge_attn_states": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                 _I, _I, _I, _P),
-    "repro_paged_decode_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                     _I, _I, _I, _F, _I, _I, _P),
-    "repro_flash_decode_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+    "repro_paged_decode_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                     _I, _I, _I, _I, _I, _I, _I, _I, _I,
                                      _I, _I, _F, _I, _I, _I, _I, _P),
+    "repro_flash_decode_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                     _I, _I, _I, _I, _I, _I, _I, _F, _I, _I,
+                                     _I, _I, _P),
 }
 
 _lib = None

@@ -34,34 +34,11 @@ namespace {
 
 using repro::from_f;
 using repro::load_vec;
+using repro::lse_score;
+using repro::lse_weights;
 using repro::store_vec;
 using repro::to_f;
-
-struct Weights {
-  float a, b;
-};
-
-template <bool RCP>
-__device__ __forceinline__ Weights lse_weights(float sa, float sb) {
-  const float m = fmaxf(sa, sb);
-  const float m_safe = m == -INFINITY ? 0.f : m;
-  const float wa = expf(sa - m_safe);
-  const float wb = expf(sb - m_safe);
-  const float denom = wa + wb;
-  if (!(denom > 0.f)) return {0.f, 0.f};
-  if constexpr (RCP) {
-    const float inv = __frcp_rn(denom);
-    return {wa * inv, wb * inv};
-  } else {
-    return {wa / denom, wb / denom};
-  }
-}
-
-__device__ __forceinline__ float lse_score(float sa, float sb) {
-  const float m = fmaxf(sa, sb);
-  const float m_safe = m == -INFINITY ? 0.f : m;
-  return m + logf(expf(sa - m_safe) + expf(sb - m_safe));
-}
+using repro::Weights;
 
 template <typename T, int VEC, bool HOIST, bool RCP, bool FUSE_S>
 __global__ void merge_kernel(const T* __restrict__ va,

@@ -7,192 +7,130 @@
 //   q [b, hq, d]; k_pages, v_pages [P, page, hkv, d];
 //   page_table [b, n_pt] int32; kv_len [b] int32; out [b, hq, d].
 //   Logical row t of request b lives at row t % page of physical page
-//   page_table[b, t / page]. Rows >= kv_len are masked; out is 0 where no
-//   row is valid.
+//   page_table[b, t / page]. The Pallas grid walks the table's logical
+//   pages with an fp32 online-softmax carry; rows >= kv_len score -1e30;
+//   out is acc / l, or 0 where l = 0.
 //
 // What bounds it on the H100: bytes. Each valid K and V row is read once
 // (2 * d elements for every kv head) and used by the whole query group
 // (7 heads at qwen2-0.5b's width), ~4 * group flops per element read. At
-// decode (8 requests of a few hundred rows) the call moves ~2 MB, and
-// with one block per (request, kv head) only 16 blocks run, so it is
-// latency and launch bound.
+// decode (8 requests of a few hundred rows) the call moves ~0.4 MB: well
+// under one launch's floor, so what counts is how many dependent memory
+// round trips a block makes and how many SMs share the rows.
 //
-// Design: one block per (kv head, request). The block loads its own
-// kv_len and its own page-table row (the TPU's scalar prefetch becomes a
-// plain load) and keeps the query group in shared memory in fp32. A loop
-// inside the block walks the logical rows in chunks of kChunk (64): it
-// gathers the chunk's K and V rows through the page table into shared
-// memory with 16-byte loads, scores them against every query of the group
-// (one (query, row) pair per thread), updates the fp32 online-softmax
-// carry (m, l) with one warp per query and shuffle reductions, and folds
-// the chunk's probability-weighted V rows into the fp32 accumulator. Chunks
-// at or past kv_len are never visited and rows past kv_len inside the last
-// chunk are never read, so table entries there (the trap page, or pages of
-// other requests) are never touched. Any group size and any head_dim up to
-// 256 work; nothing is padded.
+// Design: the split-KV walk of common.cuh (repro::decode::walk) with a
+// step of `step` logical rows (64: 16 for each of the 4 warps), whatever
+// the page size. A block loads its own slice of the page-table row into
+// shared memory (the TPU's scalar prefetch becomes a plain load), and each
+// warp gathers its rows through it with 16-byte cp.async copies into its
+// three-slot ring. A table entry outside the pool reads the trap page 0,
+// for memory safety only. Genome flags are template parameters, every
+// combination instantiated:
+//   MASK_OOB  visit and read only the rows below kv_len: nothing past it is
+//             read (pages of other requests, the trap page);
+//   else      read every row of the table and mask, as _paged_kernel walks
+//             every logical page; with kv_len = 0 the result is then the
+//             Pallas baseline's mean of V over the table's rows;
+//   RCP       out = acc * __frcp_rn(l); else out = acc / l.
+// Any group size, any page size and any head_dim up to 256 work.
 #include "common.cuh"
 
 namespace {
 
-using repro::from_f;
-using repro::load_vec;
-using repro::to_f;
-using repro::warp_max;
-using repro::warp_sum;
+namespace dec = repro::decode;
 
-constexpr int kChunk = 64;         // logical rows per step of the loop
-constexpr int kThreads = 128;      // 4 warps
-constexpr float kNegInf = -1e30f;  // finite -inf: exp() stays defined
+// Rows of one (request, kv head) found through the page table.
+template <typename T>
+struct PagedRows {
+  const T* k;             // the pools, offset to this kv head
+  const T* v;
+  const int* table;       // this request's row of the page table
+  const int* slice;       // its pages [first, ...) in shared memory
+  int first;
+  int page, shift;        // shift = log2(page), or -1
+  int n_pt, num_pages;
+  long long row_stride;   // hkv * d
 
-template <typename T, int VEC>
-__global__ void paged_decode_kernel(const T* __restrict__ q,
-                                    const T* __restrict__ k_pages,
-                                    const T* __restrict__ v_pages,
-                                    const int* __restrict__ page_table,
-                                    const int* __restrict__ kv_len, T* out,
-                                    int hq, int hkv, int d, int page,
-                                    int n_pt, int num_pages, float scale) {
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  const int group = hq / hkv;
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int n_warps = nt >> 5;
-  const int ld = d + 1;  // padded K row: scores read ks at stride ld
-
-  extern __shared__ float sm[];
-  float* qs = sm;                         // [group, d]
-  float* acc = qs + group * d;            // [group, d]
-  float* ks = acc + group * d;            // [kChunk, d + 1]
-  float* vs = ks + kChunk * ld;           // [kChunk, d]
-  float* sc = vs + kChunk * d;            // [group, kChunk] scores / probs
-  float* m = sc + group * kChunk;         // [group] running max
-  float* l = m + group;                   // [group] running sum
-  float* alpha = l + group;               // [group] this chunk's rescale
-
-  const long long q_off = (static_cast<long long>(b) * hq +
-                           static_cast<long long>(h) * group) * d;
-  for (int i = tid; i < group * d; i += nt) {
-    qs[i] = to_f(q[q_off + i]);
-    acc[i] = 0.f;
-  }
-  for (int g = tid; g < group; g += nt) {
-    m[g] = kNegInf;
-    l[g] = 0.f;
+  __device__ __forceinline__ long long off(int t) const {
+    const int pg = shift >= 0 ? t >> shift : t / page;
+    return (static_cast<long long>(slice[pg - first]) * page + t - pg * page) *
+           row_stride;
   }
 
-  const int len = min(kv_len[b], n_pt * page);
-  const int* row_table = page_table + static_cast<long long>(b) * n_pt;
-  const long long row_stride = static_cast<long long>(hkv) * d;
+  // The table entries of the block's steps, out-of-pool ones at page 0.
+  __device__ __forceinline__ void load(dec::Span sp, int step, int* smem) {
+    const long long lo = static_cast<long long>(sp.first) * step;
+    const long long hi = static_cast<long long>(sp.last) * step;
+    first = static_cast<int>(lo / page);
+    const long long end = (hi + page - 1) / page;
+    const int last = static_cast<int>(end < n_pt ? end : n_pt);
+    for (int i = threadIdx.x; i < last - first; i += blockDim.x) {
+      const int p = table[first + i];
+      smem[i] = p < 0 || p >= num_pages ? 0 : p;
+    }
+    slice = smem;
+  }
+};
 
-  for (int c0 = 0; c0 < len; c0 += kChunk) {
-    __syncthreads();  // the last chunk's readers are done with ks/vs/sc
-    // gather the chunk's K and V rows through the page table, VEC
-    // elements (16 bytes) at a time; rows at or past len are not read
-    for (int i = tid * VEC; i < kChunk * d; i += nt * VEC) {
-      const int r = i / d;
-      const int e = i - r * d;
-      const int t = c0 + r;
-      float kv[VEC], vv[VEC];
-      if (t < len) {
-        long long phys = row_table[t / page];
-        // memory safety only: a table entry out of the pool reads the trap
-        if (phys < 0 || phys >= num_pages) phys = 0;
-        const long long off = (phys * page + t % page) * row_stride +
-                              static_cast<long long>(h) * d + e;
-        if constexpr (VEC > 1) {
-          load_vec<T, VEC>(k_pages + off, kv);
-          load_vec<T, VEC>(v_pages + off, vv);
-        } else {
-          kv[0] = to_f(k_pages[off]);
-          vv[0] = to_f(v_pages[off]);
-        }
-      } else {
-#pragma unroll
-        for (int j = 0; j < VEC; ++j) kv[j] = vv[j] = 0.f;
-      }
-#pragma unroll
-      for (int j = 0; j < VEC; ++j) {
-        ks[r * ld + e + j] = kv[j];
-        vs[i + j] = vv[j];
-      }
-    }
-    __syncthreads();
-    // scores: one (query, row) pair per thread and step
-    for (int i = tid; i < group * kChunk; i += nt) {
-      const int g = i / kChunk;
-      const int r = i - g * kChunk;
-      float s = kNegInf;
-      if (c0 + r < len) {
-        const float* qg = qs + g * d;
-        const float* kr = ks + r * ld;
-        float dot = 0.f;
-        for (int e = 0; e < d; ++e) dot = fmaf(qg[e], kr[e], dot);
-        s = dot * scale;
-      }
-      sc[i] = s;
-    }
-    __syncthreads();
-    // online softmax: one warp per query, lanes across the chunk's rows
-    for (int g = warp; g < group; g += n_warps) {
-      float* sg = sc + g * kChunk;
-      float m_cur = kNegInf;
-      for (int r = lane; r < kChunk; r += 32) m_cur = fmaxf(m_cur, sg[r]);
-      const float m_old = m[g];
-      const float m_new = fmaxf(m_old, warp_max(m_cur));
-      float sum = 0.f;
-      for (int r = lane; r < kChunk; r += 32) {
-        const float p = expf(sg[r] - m_new);
-        sg[r] = p;
-        sum += p;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float a = expf(m_old - m_new);
-        l[g] = a * l[g] + sum;
-        m[g] = m_new;
-        alpha[g] = a;
-      }
-    }
-    __syncthreads();
-    // rescale the carry and add this chunk's probability-weighted V rows
-    for (int i = tid; i < group * d; i += nt) {
-      const int g = i / d;
-      const int e = i - g * d;
-      const float* pg = sc + g * kChunk;
-      float s = 0.f;
-      for (int r = 0; r < kChunk; ++r) s = fmaf(pg[r], vs[r * d + e], s);
-      acc[i] = acc[i] * alpha[g] + s;
-    }
+template <typename T, int VEC, int DMAX, bool MASK_OOB, bool RCP>
+__global__ void __launch_bounds__(dec::kThreads, dec::kMinBlocks)
+    paged_decode_kernel(dec::Args a, const T* __restrict__ k_pages,
+                        const T* __restrict__ v_pages,
+                        const int* __restrict__ page_table, int page,
+                        int shift, int n_pt, int num_pages) {
+  const dec::Coords c = dec::coords(a);
+  const long long hd = static_cast<long long>(c.h) * a.d;
+  PagedRows<T> rows{k_pages + hd, v_pages + hd,
+                    page_table + static_cast<long long>(c.b) * n_pt,
+                    nullptr, 0, page, shift, n_pt, num_pages,
+                    static_cast<long long>(a.hkv) * a.d};
+  dec::walk<T, VEC, DMAX, MASK_OOB, RCP>(a, c, rows);
+}
+
+// Table entries a block loads at most: the pages its steps touch.
+int slice_len(int step, int steps_per_split, int page, int n_pt) {
+  const long long rows = static_cast<long long>(step) * steps_per_split;
+  const long long n = (rows + page - 1) / page + 1;
+  return static_cast<int>(n < n_pt ? n : n_pt);
+}
+
+template <typename T, int VEC, int DMAX, bool MASK_OOB, bool RCP>
+int launch(dec::Args a, const void* k, const void* v, const int* table,
+           int b, int page, int n_pt, int num_pages, cudaStream_t stream) {
+  const int group = a.hq / a.hkv;
+  a.extra_bytes = 4 * slice_len(a.step, a.steps_per_split, page, n_pt);
+  const size_t smem =
+      dec::smem_bytes(group, a.d, a.step, a.lds, sizeof(T), a.extra_bytes);
+  if (smem > dec::kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = paged_decode_kernel<T, VEC, DMAX, MASK_OOB, RCP>;
+  int err = repro::allow_smem(kernel, smem);
+  if (err) return err;
+  int shift = -1;
+  if ((page & (page - 1)) == 0) {
+    shift = 0;
+    while ((1 << shift) < page) ++shift;
   }
-  __syncthreads();
-  for (int i = tid; i < group * d; i += nt) {
-    const float lg = l[i / d];
-    out[q_off + i] = from_f<T>(lg > 0.f ? acc[i] / lg : 0.f);
-  }
+  const int n_qsub = (group + dec::kGroup - 1) / dec::kGroup;
+  dim3 grid(a.hkv * n_qsub, b, a.splits);
+  kernel<<<grid, dec::kThreads, smem, stream>>>(
+      a, static_cast<const T*>(k), static_cast<const T*>(v), table, page,
+      shift, n_pt, num_pages);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int VEC>
-int launch(const void* q, const void* k_pages, const void* v_pages,
-           const int* page_table, const int* kv_len, void* out, int b,
-           int hq, int hkv, int d, int page, int n_pt, int num_pages,
-           float scale, cudaStream_t stream) {
-  const int group = hq / hkv;
-  const size_t smem =
-      sizeof(float) * (2 * static_cast<size_t>(group) * d +
-                       kChunk * static_cast<size_t>(2 * d + 1) +
-                       static_cast<size_t>(group) * kChunk + 3 * group);
-  auto kernel = paged_decode_kernel<T, VEC>;
-  int err = repro::allow_smem(kernel, smem);
-  if (err) return err;
-  dim3 grid(hkv, b);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pages),
-      static_cast<const T*>(v_pages), page_table, kv_len,
-      static_cast<T*>(out), hq, hkv, d, page, n_pt, num_pages, scale);
-  return static_cast<int>(cudaGetLastError());
+int dispatch(const dec::Args& a, const void* k, const void* v,
+             const int* table, int b, int page, int n_pt, int num_pages,
+             bool mask_oob, bool rcp, cudaStream_t stream) {
+  return dec::with_dmax<T, VEC>(a.d, [&](auto dm) {
+    return repro::with_bool(mask_oob, [&](auto mo) {
+      return repro::with_bool(rcp, [&](auto r) {
+        return launch<T, VEC, decltype(dm)::value, decltype(mo)::value,
+                      decltype(r)::value>(a, k, v, table, b, page, n_pt,
+                                          num_pages, stream);
+      });
+    });
+  });
 }
 
 }  // namespace
@@ -200,30 +138,47 @@ int launch(const void* q, const void* k_pages, const void* v_pages,
 // All tensors contiguous; q, pools and out in `dtype`, page_table and
 // kv_len int32. hq must be a multiple of hkv and d at most 256 (the
 // wrapper checks both). `vec` is 1 or the 16-byte width of the dtype (the
-// wrapper checks that it divides d and that the pools are aligned).
+// wrapper checks that it divides d and that the pools are aligned); `lds`
+// as for repro_flash_decode_attention. The table's n_pt * page rows walk
+// in steps of `step` rows, split into `splits` non-empty ranges of
+// `steps_per_split`; with splits > 1, part_acc, part_ml and counters are
+// the device buffers of repro_flash_decode_attention.
 extern "C" int repro_paged_decode_attention(
     const void* q, const void* k_pages, const void* v_pages,
-    const void* page_table, const void* kv_len, void* out, int b, int hq,
-    int hkv, int d, int page, int n_pt, int num_pages, float scale,
-    int dtype, int vec, void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
+    const void* page_table, const void* kv_len, void* out, void* part_acc,
+    void* part_ml, void* counters, int b, int hq, int hkv, int d, int page,
+    int n_pt, int num_pages, int step, int lds, int splits,
+    int steps_per_split, float scale, int dtype, int vec, int mask_oob,
+    int rcp, void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
   auto pt = static_cast<const int*>(page_table);
-  auto lens = static_cast<const int*>(kv_len);
+  const long long rows = static_cast<long long>(n_pt) * page;
+  const long long n_steps = step > 0 ? (rows + step - 1) / step : 0;
+  if (page < 1 || n_pt < 1 || step < 1 || lds < d || splits < 1 ||
+      steps_per_split < 1 || rows > (1LL << 30) ||
+      static_cast<long long>(splits) * steps_per_split < n_steps ||
+      static_cast<long long>(splits - 1) * steps_per_split >= n_steps ||
+      (splits > 1 && (!part_acc || !part_ml || !counters))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int rows_i = static_cast<int>(rows);
+  dec::Args a{q, out, static_cast<const int*>(kv_len),
+              static_cast<float*>(part_acc), static_cast<float*>(part_ml),
+              static_cast<int*>(counters), hq, hkv, d, lds, step, rows_i,
+              rows_i, splits, steps_per_split, 0, scale};
   if (dtype == repro::kBFloat16) {
-    return vec == 8
-               ? launch<__nv_bfloat16, 8>(q, k_pages, v_pages, pt, lens, out,
-                                          b, hq, hkv, d, page, n_pt,
-                                          num_pages, scale, s)
-               : launch<__nv_bfloat16, 1>(q, k_pages, v_pages, pt, lens, out,
-                                          b, hq, hkv, d, page, n_pt,
-                                          num_pages, scale, s);
+    return vec == 8 ? dispatch<__nv_bfloat16, 8>(a, k_pages, v_pages, pt, b,
+                                                 page, n_pt, num_pages,
+                                                 mask_oob, rcp, st)
+                    : dispatch<__nv_bfloat16, 1>(a, k_pages, v_pages, pt, b,
+                                                 page, n_pt, num_pages,
+                                                 mask_oob, rcp, st);
   }
   if (dtype == repro::kFloat32) {
-    return vec == 4
-               ? launch<float, 4>(q, k_pages, v_pages, pt, lens, out, b, hq,
-                                  hkv, d, page, n_pt, num_pages, scale, s)
-               : launch<float, 1>(q, k_pages, v_pages, pt, lens, out, b, hq,
-                                  hkv, d, page, n_pt, num_pages, scale, s);
+    return vec == 4 ? dispatch<float, 4>(a, k_pages, v_pages, pt, b, page,
+                                         n_pt, num_pages, mask_oob, rcp, st)
+                    : dispatch<float, 1>(a, k_pages, v_pages, pt, b, page,
+                                         n_pt, num_pages, mask_oob, rcp, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -10,8 +10,7 @@ the other.
 reintegration); ``get_variant`` reads them back through the kernel
 registry, as the JAX package's ``ops`` does: a kernel with no override
 runs its registered space's shipped genome, and a name with no registered
-space raises KeyError. ``paged_flash_decode`` has no space yet and keeps
-its single form; the contiguous ``flash_decode`` has one.
+space raises KeyError.
 """
 
 from __future__ import annotations
@@ -78,7 +77,8 @@ def paged_flash_decode_attention(q, k_pages, v_pages, page_table, *,
                                  kv_len=None, sm_scale=None):
     """Single-token GQA decode attention over a paged KV pool."""
     return _fd.paged_flash_decode_attention(
-        q, k_pages, v_pages, page_table, kv_len=kv_len, sm_scale=sm_scale)
+        q, k_pages, v_pages, page_table, kv_len=kv_len, sm_scale=sm_scale,
+        variant=get_variant("paged_flash_decode"))
 
 
 def launch_counts() -> dict:

@@ -75,15 +75,32 @@ def test_silu_and_mul_matches_plain(dev, rows, d, dtype):
     _close(out, ref.silu_and_mul(x), dtype)
 
 
-def paged_case(b, hq, hkv, dh, page, n_pt, dtype, dev, seed=0):
+def _bool_genomes(base, *flags):
+    """``base`` with every combination of the bool ``flags``."""
+    return [dataclasses.replace(base, name="-".join(
+                f"{f}={int(v)}" for f, v in zip(flags, vals)),
+                **dict(zip(flags, vals)))
+            for vals in itertools.product((False, True), repeat=len(flags))]
+
+
+PAGED_GENOMES = _bool_genomes(flash_decode.PAGED_OPTIMIZED, "mask_oob",
+                              "use_reciprocal")
+FLASH_GENOMES = _bool_genomes(flash_decode.OPTIMIZED, "mask_oob",
+                              "use_reciprocal")
+
+
+def paged_case(b, hq, hkv, dh, page, n_pt, dtype, dev, seed=0, lens=None):
     """Pools, a shuffled page table whose tail past kv_len points at trap
-    page 0, and ragged lengths including 1 and an exact page multiple."""
+    page 0, and ragged lengths including 1 and an exact page multiple (or
+    ``lens``)."""
     rng = np.random.default_rng(seed)
     n_pages = b * n_pt + 1
-    lens = rng.integers(1, n_pt * page + 1, size=b)
-    lens[0] = 1
-    if b > 1:
-        lens[1] = 2 * page
+    if lens is None:
+        lens = rng.integers(1, n_pt * page + 1, size=b)
+        lens[0] = 1
+        if b > 1:
+            lens[1] = 2 * page
+    lens = np.asarray(lens)
     perm = rng.permutation(np.arange(1, n_pages))
     table = np.zeros((b, n_pt), np.int32)
     for i in range(b):
@@ -109,10 +126,12 @@ def test_paged_decode_matches_plain(dev, hq, hkv, dh, dtype):
     _close(out, want, dtype)
 
 
-def test_paged_decode_never_reads_past_kv_len(dev):
-    """Rows past kv_len are never read: NaN in every trap-page row and in
-    the unused tail of each request's last page leaves the output
-    finite."""
+@pytest.mark.parametrize("genome", [g for g in PAGED_GENOMES
+                                    if g.mask_oob], ids=lambda g: g.name)
+def test_paged_decode_never_reads_past_kv_len(dev, genome):
+    """Under ``mask_oob`` rows past kv_len are never read: NaN in every
+    trap-page row and in the unused tail of each request's last page
+    leaves the output finite."""
     q, k, v, table, lens = paged_case(8, 14, 2, 64, 16, 20, torch.bfloat16,
                                       dev)
     k[0] = float("nan")
@@ -122,17 +141,10 @@ def test_paged_decode_never_reads_past_kv_len(dev):
         last = int(table[i, (n - 1) // 16])
         k[last, (n - 1) % 16 + 1:] = float("nan")
         v[last, (n - 1) % 16 + 1:] = float("nan")
-    out = ops.paged_flash_decode_attention(q, k, v, table, kv_len=lens)
+    out = flash_decode.paged_flash_decode_attention(q, k, v, table,
+                                                    kv_len=lens,
+                                                    variant=genome)
     assert torch.isfinite(out.float()).all()
-
-
-
-def _bool_genomes(base, *flags):
-    """``base`` with every combination of the bool ``flags``."""
-    return [dataclasses.replace(base, name="-".join(
-                f"{f}={int(v)}" for f, v in zip(flags, vals)),
-                **dict(zip(flags, vals)))
-            for vals in itertools.product((False, True), repeat=len(flags))]
 
 
 MERGE_GENOMES = _bool_genomes(merge_attn_states.OPTIMIZED, "hoist",
@@ -248,14 +260,16 @@ def flash_case(b, hq, hkv, dh, s, dtype, dev, seed=0, lens=None):
 
 
 # (b, hq, hkv, dh, s): h2o-danube's group 4 at 80, qwen2's group 7 at 64,
-# a ragged 100 (one element at a time, no 16-byte vectors) and group 1
+# a ragged 100 (one element at a time, no 16-byte vectors), group 1, and
+# group 12 (two blocks of queries a kv head)
 FLASH_SHAPES = [(8, 32, 8, 80, 1000), (8, 14, 2, 64, 512),
-                (3, 4, 2, 100, 77), (4, 16, 16, 128, 300)]
+                (3, 4, 2, 100, 77), (4, 16, 16, 128, 300),
+                (2, 24, 2, 64, 200)]
 
 
 @pytest.mark.parametrize("shape", FLASH_SHAPES, ids=str)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("chunk", [16, 64, 128])
+@pytest.mark.parametrize("chunk", [16, 32, 64, 128, 256])
 @pytest.mark.parametrize("mask_oob,rcp",
                          list(itertools.product((False, True), repeat=2)))
 def test_flash_decode_matches_plain(dev, shape, dtype, chunk, mask_oob,
@@ -333,6 +347,145 @@ def test_flash_decode_on_the_card_launches_or_raises(dev, monkeypatch):
         with pytest.raises((ValueError, TypeError)):
             fn(*args, **kw)
     assert fn.launches == n0 + 1
+
+
+def _split_edges(plan, s, step, b):
+    """kv_len at 0, 1, s and each split boundary - 1, + 0, + 1, in batches
+    of ``b`` requests (the last one filled up with s)."""
+    per = plan["steps_per_split"] * step
+    edges = {0, 1, s}
+    for sp in range(1, plan["splits"]):
+        edges.update((sp * per - 1, sp * per, sp * per + 1))
+    edges = sorted(e for e in edges if 0 <= e <= s)
+    edges += [s] * (-len(edges) % b)
+    return [edges[i:i + b] for i in range(0, len(edges), b)]
+
+
+# (b, hkv, dh, s, chunk): the h2o-danube decode shape, qwen2's contiguous
+# one, and caches one row past a split edge
+SPLIT_SHAPES = [(8, 8, 80, 4096, 64), (8, 2, 64, 512, 64),
+                (4, 2, 64, 3 * 64 + 1, 64), (2, 2, 80, 33 * 16 + 1, 16)]
+
+
+@pytest.mark.parametrize("shape", SPLIT_SHAPES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("genome", FLASH_GENOMES, ids=lambda g: g.name)
+def test_flash_decode_splits_at_every_edge(dev, shape, dtype, genome):
+    """kv_len at 0, 1, s and at each split boundary +- 1; splits come from
+    the shapes (none of these is one split)."""
+    b, hkv, dh, s, chunk = shape
+    genome = dataclasses.replace(genome, chunk=chunk)
+    plan = flash_decode.launch_plan(genome, batch=b, q_heads=4 * hkv,
+                                    kv_heads=hkv, head_dim=dh, seq=s,
+                                    dtype=dtype)
+    assert plan["splits"] > 1
+    for lens in _split_edges(plan, s, min(chunk, s), b):
+        q, k, v, n = flash_case(b, 4 * hkv, hkv, dh, s, dtype, dev,
+                                lens=lens)
+        got = flash_decode.flash_decode_attention(q, k, v, kv_len=n,
+                                                  variant=genome)
+        _close(got, flash_decode.plain(genome, q, k, v, n, dh ** -0.5),
+               dtype)
+        if genome.mask_oob and lens[0] == 0:
+            assert (got[0] == 0).all()
+
+
+def test_decode_counters_reset_between_calls(dev):
+    """Two calls in a row with other lengths each match the plain version,
+    and every counter is back at 0 after them."""
+    genome = flash_decode.OPTIMIZED
+    q, k, v, n = flash_case(8, 32, 8, 80, 1000, torch.bfloat16, dev)
+    for lens in (n, n.flip(0)):
+        got = flash_decode.flash_decode_attention(q, k, v, kv_len=lens,
+                                                  variant=genome)
+        _close(got, flash_decode.plain(genome, q, k, v, lens, 80 ** -0.5),
+               torch.bfloat16)
+    pq, pk, pv, table, plens = paged_case(8, 14, 2, 64, 16, 32,
+                                          torch.bfloat16, dev)
+    for lens in (plens, plens.flip(0)):
+        got = flash_decode.paged_flash_decode_attention(pq, pk, pv, table,
+                                                        kv_len=lens)
+        _close(got, flash_decode.paged_plain(
+            flash_decode.PAGED_OPTIMIZED, pq, pk, pv, table, lens,
+            64 ** -0.5), torch.bfloat16)
+    torch.cuda.synchronize()
+    assert (flash_decode._COUNTERS[q.device] == 0).all()
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_decode_call_replays_in_a_cuda_graph(dev, paged):
+    """A call captured in a CUDA graph and replayed with new kv_len values
+    matches the plain version: no host sync, splits not from kv_len."""
+    if paged:
+        q, k, v, table, lens = paged_case(8, 14, 2, 64, 16, 32,
+                                          torch.bfloat16, dev)
+        genome = flash_decode.PAGED_OPTIMIZED
+
+        def call():
+            return flash_decode.paged_flash_decode_attention(
+                q, k, v, table, kv_len=lens, variant=genome)
+
+        def want():
+            return flash_decode.paged_plain(genome, q, k, v, table, lens,
+                                            64 ** -0.5)
+    else:
+        q, k, v, lens = flash_case(8, 32, 8, 80, 1000, torch.bfloat16, dev)
+        genome = flash_decode.OPTIMIZED
+
+        def call():
+            return flash_decode.flash_decode_attention(
+                q, k, v, kv_len=lens, variant=genome)
+
+        def want():
+            return flash_decode.plain(genome, q, k, v, lens, 80 ** -0.5)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()                                  # warm-up outside capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    limit = k.shape[1] if not paged else table.shape[1] * k.shape[1]
+    rng = np.random.default_rng(5)
+    for new in (rng.integers(1, limit + 1, size=8), np.zeros(8),
+                np.full(8, limit)):
+        lens.copy_(torch.tensor(new, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        _close(out, want(), torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("genome", PAGED_GENOMES, ids=lambda g: g.name)
+@pytest.mark.parametrize("hq,hkv,dh,page,n_pt", [
+    (14, 2, 64, 16, 32), (32, 8, 128, 16, 20), (8, 2, 80, 8, 40),
+    (12, 4, 64, 64, 5), (4, 1, 64, 24, 9), (24, 2, 64, 16, 12)])
+def test_paged_genomes_match_paged_plain(dev, genome, dtype, hq, hkv, dh,
+                                         page, n_pt):
+    """Every genome against its plain version: kv_len 0, 1, the table's
+    rows and each split boundary +- 1, each request's table tail on the
+    trap page (the engine's layout); pow2 and other page sizes, group
+    12."""
+    b, rows = 8, page * n_pt
+    plan = flash_decode.paged_launch_plan(batch=b, q_heads=hq, kv_heads=hkv,
+                                          head_dim=dh, page=page, n_pt=n_pt,
+                                          dtype=dtype)
+    assert plan["splits"] > 1
+    for lens in _split_edges(plan, rows, flash_decode.PAGED_STEP, b):
+        q, k, v, table, n = paged_case(b, hq, hkv, dh, page, n_pt, dtype,
+                                       dev, lens=lens)
+        n0 = flash_decode.paged_flash_decode_attention.launches
+        got = flash_decode.paged_flash_decode_attention(q, k, v, table,
+                                                        kv_len=n,
+                                                        variant=genome)
+        torch.cuda.synchronize()
+        assert flash_decode.paged_flash_decode_attention.launches == n0 + 1
+        want = flash_decode.paged_plain(genome, q, k, v, table, n,
+                                        dh ** -0.5)
+        _close(got, want, dtype)
+        if genome.mask_oob and lens[0] == 0:
+            assert (got[0] == 0).all()              # kv_len 0: no row
 
 
 def test_windowed_decode_on_the_card_matches_the_cpu(dev):

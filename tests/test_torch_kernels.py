@@ -386,6 +386,84 @@ def test_flash_decode_plain_follows_the_pallas_grid_at_the_edges():
     torch.testing.assert_close(past[1], zero[1])
 
 
+def _split_ranges(n_chunks: int, splits: int):
+    """The kernel's ranges: ``splits`` ranges of ceil(n / splits) chunks,
+    the last one short (uneven) where it does not divide."""
+    per = -(-n_chunks // splits)
+    return [(lo, min(n_chunks, lo + per)) for lo in range(0, n_chunks, per)]
+
+
+@pytest.mark.parametrize("splits", [1, 3, 8])
+@pytest.mark.parametrize("genome", ["baseline", "optimized"])
+def test_flash_decode_split_merge_matches_unsplit_and_pallas(genome, splits):
+    """The split-KV kernels' math without the card: ``plain_state`` over
+    ranges of whole chunks, merged with Kernel 1's (m, l) weights, equals
+    the unsplit plain version and the Pallas kernel (interpret mode) at
+    fp32 1e-5 / 1e-4. s = 200 in chunks of 64 (a ragged last chunk, so an
+    uneven last range); kv_len 0 (the baseline's mean of V over the padded
+    rows), 1, each range edge +- 1 and s."""
+    variant = FLASH_GENOMES[genome]
+    s, chunk = 200, variant.chunk
+    ranges = _split_ranges(-(-s // chunk), splits)
+    lens = {0, 1, s}
+    for lo, _ in ranges[1:]:
+        lens.update((lo * chunk - 1, lo * chunk, lo * chunk + 1))
+    lens = np.array(sorted(lens), np.int32)
+    rng = np.random.default_rng(splits)
+    q = rng.standard_normal((len(lens), 8, 80))
+    k, v = rng.standard_normal((2, len(lens), s, 2, 80))
+    (qj, qt), (kj, kt), (vj, vt) = both(q, "float32"), \
+        both(k, "float32"), both(v, "float32")
+    lj, lt = both(lens, "float32")
+    scale = 80 ** -0.5
+    states = [flash_decode.plain_state(variant, qt, kt, vt, lt, scale,
+                                       chunks=r) for r in ranges]
+    acc, _, l = flash_decode.merge_states(states)
+    got = flash_decode.finish(variant.use_reciprocal, acc, l, qt.dtype)
+    whole = flash_decode.plain(variant, qt, kt, vt, lt, scale)
+    torch.testing.assert_close(got, whole, **TOL["float32"])
+    want = jit(jfd.flash_decode_attention, variant=jax_genome(jfd, variant),
+               interpret=True)(qj, kj, vj, kv_len=lj)
+    close(want, got, "float32")
+    if variant.mask_oob:
+        assert (got[0] == 0).all()
+    else:                       # kv_len 0: the mean of V over 256 rows
+        mean = vt[0].sum(dim=0) / (-(-s // chunk) * chunk)
+        torch.testing.assert_close(got[0], mean.repeat_interleave(4, 0),
+                                   **TOL["float32"])
+
+
+PAGED_GENOMES = {"baseline": flash_decode.PAGED_BASELINE,
+                 "optimized": flash_decode.PAGED_OPTIMIZED}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("genome", sorted(PAGED_GENOMES))
+def test_paged_genome_matches_pallas(genome, dtype):
+    """``paged_plain`` of each JAX genome against the Pallas paged kernel
+    of the same genome (interpret mode): group 4, the table's tail on trap
+    page 0, kv_len 0 (the baseline's mean of V over the table's rows, the
+    trap page's included), 1, an exact page multiple and the table."""
+    variant = PAGED_GENOMES[genome]
+    q, k, v, table, lens = paged_case(4, 8, 2, 32, 8, 3, seed=11)
+    lens[:] = (0, 1, 16, 24)
+    (qj, qt), (kj, kt), (vj, vt) = both(q, dtype), both(k, dtype), \
+        both(v, dtype)
+    (tj, tt), (lj, lt) = both(table, dtype), both(lens, dtype)
+    want = jit(jfd.paged_flash_decode_attention,
+               variant=jax_genome(jfd, variant),
+               interpret=True)(qj, kj, vj, tj, kv_len=lj)
+    got = flash_decode.paged_flash_decode_attention(qt, kt, vt, tt,
+                                                    kv_len=lt,
+                                                    variant=variant)
+    assert got.dtype == TORCH[dtype] and got.shape == q.shape
+    close(want, got, dtype)
+    if variant.mask_oob:
+        assert (got[0] == 0).all()
+    else:
+        assert (got[0] != 0).any()
+
+
 def test_plain_genomes_keep_their_arithmetic_order():
     """The plain versions differ where the genome says the arithmetic
     does: the two-pass form normalises the rounded r', bf16 compute
@@ -472,22 +550,26 @@ def test_kernels_refuse_other_devices():
 def test_variant_record_names_known_kernels(monkeypatch):
     """``ops`` reads the registry, as the JAX ``ops`` does: with no
     override a kernel runs its space's shipped genome, an installed genome
-    is read back, and a name with no registered space raises KeyError
-    (``paged_flash_decode`` has none until its space is ported)."""
+    is read back, and a name with no registered space raises KeyError.
+    Five spaces, as JAX registers: ``paged_flash_decode`` ships
+    ``PAGED_OPTIMIZED``."""
     monkeypatch.setattr(ops, "_OVERRIDES", {})
     names = registry.registered_kernels()
     assert names == ("flash_decode", "fused_add_rmsnorm",
-                     "merge_attn_states_lse", "silu_and_mul")
+                     "merge_attn_states_lse", "paged_flash_decode",
+                     "silu_and_mul")
     for name in names:
         assert ops.get_variant(name) == registry.get_space(name).shipped
         assert ops.get_variant(name).name == "astra_opt"
+    assert ops.get_variant("paged_flash_decode") == \
+        flash_decode.PAGED_OPTIMIZED
+    assert jops.get_variant("paged_flash_decode") == jfd.PAGED_OPTIMIZED
     ops.set_variants(silu_and_mul=silu_and_mul.BASELINE)
     assert ops.get_variant("silu_and_mul") == silu_and_mul.BASELINE
-    for bad in ("no_such_kernel", "paged_flash_decode"):
-        with pytest.raises(KeyError):
-            ops.set_variants(**{bad: "x"})
-        with pytest.raises(KeyError):
-            ops.get_variant(bad)
+    with pytest.raises(KeyError):
+        ops.set_variants(no_such_kernel="x")
+    with pytest.raises(KeyError):
+        ops.get_variant("no_such_kernel")
     assert "no_such_kernel" not in ops._OVERRIDES
 
 

@@ -1,9 +1,10 @@
 """The agent loop of the PyTorch port against the JAX package, on the CPU.
 
 * Registry parity: the port registers the JAX package's three paper
-  kernels with the same knobs, genomes and suite shapes, and the
-  contiguous decode attention (``flash_decode``) with JAX's knobs but a
-  ``chunk`` range the card's shared memory can hold.
+  kernels and the paged decode attention (``paged_flash_decode``) with the
+  same knobs, genomes and suite shapes, and the contiguous decode
+  attention (``flash_decode``) with JAX's knobs but a ``chunk`` range the
+  card's shared memory can hold.
 * Policy parity: both packages' planners make the same moves from the
   same genomes, verdicts, profile signals and histories.
 * Strategy parity: one toy space, built in each package from one
@@ -76,9 +77,10 @@ def knob_tuple(space):
             for k in space.knobs]
 
 
-@pytest.mark.parametrize("kernel", PAPER)
+@pytest.mark.parametrize("kernel", PAPER + ("paged_flash_decode",))
 def test_registry_matches_the_jax_space(kernel):
-    assert registry.registered_kernels() == ("flash_decode",) + PAPER
+    assert registry.registered_kernels() == tuple(sorted(
+        ("flash_decode", "paged_flash_decode") + PAPER))
     mine, ref = get_space(kernel), jregistry.get_space(kernel)
     assert knob_tuple(mine) == knob_tuple(ref)
     assert dataclasses.asdict(mine.baseline) == \
@@ -111,10 +113,10 @@ def test_flash_decode_space_is_jax_but_the_chunk_range():
 
 
 def test_flash_decode_cost_screens_tiles_that_do_not_fit():
-    """Two stages of K and V tiles: chunk 64 fits every suite shape; 128
+    """Three slots of K and V tiles: chunk 64 fits every suite shape; 128
     does not fit fp32 at head_dim 128, and 256 fits only bf16 at
-    head_dim 64 among them, and the h2o-danube decode shape (head_dim 80,
-    bf16)."""
+    head_dim 64 among them; the h2o-danube decode shape (head_dim 80,
+    bf16) takes up to 128."""
     big = dataclasses.replace(flash_decode.OPTIMIZED, chunk=256)
     for shape in flash_decode.SUITE_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
@@ -131,14 +133,23 @@ def test_flash_decode_cost_screens_tiles_that_do_not_fit():
     h2o = dict(batch=8, q_heads=32, kv_heads=8, head_dim=80, seq=4096,
                dtype=torch.bfloat16)
     c = flash_decode.cost(dataclasses.replace(flash_decode.OPTIMIZED,
-                                              chunk=256), **h2o)
+                                              chunk=128), **h2o)
     assert c.smem_bytes <= costmodel.SMEM_PER_BLOCK
-    # the byte bound of the h2o decode shape, all rows valid: 25.0 us
+    with pytest.raises(costmodel.Infeasible):
+        flash_decode.cost(dataclasses.replace(flash_decode.OPTIMIZED,
+                                              chunk=256), **h2o)
+    # the byte bound of the h2o decode shape, all rows valid: 25.0 us,
+    # plus the fp32 partials of its splits, written once and read once
     base = flash_decode.cost(flash_decode.BASELINE, **h2o)
-    assert base.mem_s * 1e6 == pytest.approx(25.04, abs=0.05)
+    plan = flash_decode.launch_plan(flash_decode.BASELINE, **h2o)
+    part = 2 * 8 * 32 * plan["splits"] * (80 + 2) * 4
+    assert plan["splits"] > 1 and base.blocks == 64 * plan["splits"]
+    assert base.mem_s * 1e6 == pytest.approx(25.04 + part / 3.35e6,
+                                             abs=0.05)
     # mask_oob moves only the chunks below kv_len (33 of 64 here)
     half = flash_decode.cost(flash_decode.OPTIMIZED, mean_kv_len=2048, **h2o)
-    assert half.total("dram_bytes") < 0.52 * base.total("dram_bytes")
+    assert half.total("dram_bytes") - part < \
+        0.52 * (base.total("dram_bytes") - part)
 
 
 def test_flash_decode_infeasible_move_is_screened_never_validated():
@@ -187,6 +198,69 @@ def test_flash_decode_search_on_the_analytic_backend():
     assert len(log.entries) == 4 and log.best().correct
     assert log.speedup() >= 1.0
     assert all(e.correct for e in log.entries)
+
+
+def test_paged_space_is_the_jax_space():
+    """JAX's genome (page_size, mask_oob, use_reciprocal), its baseline and
+    shipped genomes, knobs and ranges (page_size pow2 8..256), and suite;
+    ``ops`` ships ``PAGED_OPTIMIZED``."""
+    mine = get_space("paged_flash_decode")
+    ref = jregistry.get_space("paged_flash_decode")
+    assert mine.shipped == flash_decode.PAGED_OPTIMIZED
+    assert mine.baseline == flash_decode.PAGED_BASELINE
+    assert dataclasses.asdict(mine.shipped) == dict(
+        name="astra_opt", page_size=64, use_reciprocal=True, mask_oob=True)
+    assert ops.get_variant("paged_flash_decode") == mine.shipped
+
+
+def test_paged_launch_key_and_cost_follow_the_genome():
+    """Every knob move launches other code at the suite shapes; a page past
+    the cache's rows launches the same; the cost counts the split form."""
+    space = get_space("paged_flash_decode")
+    base = space.baseline
+    for shape in flash_decode.PAGED_SUITE_SHAPES:
+        info = dict(shape, dtype=torch.bfloat16, mean_kv_len=100.0)
+        keys = {space.launch_key(base, **info)}
+        for knob in space.knobs:
+            value = 2 * base.page_size if knob.kind == "pow2" \
+                else not getattr(base, knob.name)
+            keys.add(space.launch_key(space.mutate(base, knob, value),
+                                      **info))
+        assert len(keys) == 1 + len(space.knobs)
+        c = space.cost(space.shipped, **info)
+        plan = flash_decode.paged_launch_plan(
+            batch=shape["batch"], q_heads=shape["q_heads"],
+            kv_heads=shape["kv_heads"], head_dim=shape["head_dim"],
+            page=64, n_pt=-(-shape["seq"] // 64), dtype=torch.bfloat16)
+        assert c.blocks == shape["batch"] * shape["kv_heads"] * \
+            plan["splits"] and c.threads == flash_decode.THREADS
+        # the launch floor: these calls move well under a microsecond
+        assert c.dominant() == "overhead"
+    short = dict(flash_decode.PAGED_SUITE_SHAPES[0], seq=50,
+                 dtype=torch.float32)
+    assert space.launch_key(dataclasses.replace(base, page_size=64),
+                            **short) == space.launch_key(
+        dataclasses.replace(base, page_size=256), **short)
+    # mask_oob moves only the rows below kv_len
+    info = dict(flash_decode.PAGED_SUITE_SHAPES[1], dtype=torch.bfloat16)
+    full = space.cost(base, mean_kv_len=400.0, **info)
+    masked = space.cost(dataclasses.replace(base, mask_oob=True),
+                        mean_kv_len=100.0, **info)
+    assert masked.total("dram_bytes") < 0.5 * full.total("dram_bytes")
+
+
+def test_paged_search_on_the_analytic_backend():
+    """One round of the agent loop on ``paged_flash_decode`` on the CPU:
+    the suite is paged through the shuffled table, both genomes validate
+    against the contiguous oracle, and the Log has two correct entries."""
+    space = dataclasses.replace(
+        get_space("paged_flash_decode"),
+        suite_shapes=({"batch": 2, "q_heads": 8, "kv_heads": 2,
+                       "head_dim": 64, "seq": 100},))
+    log = optimize(space, rounds=1, device="cpu")
+    assert len(log.entries) == 2 and all(e.correct for e in log.entries)
+    assert log.entries[0].code == space.baseline
+    assert log.best().correct and log.speedup() >= 1.0
 
 
 @pytest.mark.parametrize("kernel", PAPER)
