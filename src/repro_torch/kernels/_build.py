@@ -40,12 +40,10 @@ SIGNATURES = {
                            _I, _P),
     "repro_merge_attn_states": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                 _I, _I, _I, _P),
-    "repro_paged_decode_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                     _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                                     _I, _I, _F, _I, _I, _I, _I, _P),
-    "repro_flash_decode_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                     _I, _I, _I, _I, _I, _I, _I, _F, _I, _I,
-                                     _I, _I, _P),
+    "repro_paged_decode_attention": (_P,) * 9 + (_I,) * 13
+    + (_F, _I, _I, _I, _I, _P),
+    "repro_flash_decode_attention": (_P,) * 8 + (_I,) * 10
+    + (_F, _I, _I, _I, _I, _P),
 }
 
 _lib = None

@@ -254,7 +254,9 @@ __host__ __device__ inline size_t head_bytes(int gm, int d) {
 
 // Shared memory of a block: the query group, the warps' (m, l) and merge
 // weights in fp32, and a flag; the Rows policy's own bytes; then the
-// warps' rings, which the merge of the warps' accumulators reuses.
+// warps' rings, which the merge of the warps' accumulators reuses. The
+// wrapper plans with its own copy (flash_decode.py: tile_layout) and
+// passes its figure; the launchers refuse one that differs from this.
 __host__ __device__ inline size_t smem_bytes(int group, int d, int step,
                                              int lds, int itemsize,
                                              int extra_bytes) {

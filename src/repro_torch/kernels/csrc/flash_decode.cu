@@ -62,13 +62,15 @@ __global__ void __launch_bounds__(dec::kThreads, dec::kMinBlocks)
   dec::walk<T, VEC, DMAX, MASK_OOB, RCP>(a, c, rows);
 }
 
+// Launches the wrapper's plan: `smem` must be the block's layout.
 template <typename T, int VEC, int DMAX, bool MASK_OOB, bool RCP>
 int launch(const dec::Args& a, const void* k, const void* v, int b, int s,
-           cudaStream_t stream) {
+           size_t smem, cudaStream_t stream) {
   const int group = a.hq / a.hkv;
-  const size_t smem =
-      dec::smem_bytes(group, a.d, a.step, a.lds, sizeof(T), 0);
-  if (smem > dec::kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  if (smem != dec::smem_bytes(group, a.d, a.step, a.lds, sizeof(T), 0) ||
+      smem > dec::kMaxSmem) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   auto kernel = flash_decode_kernel<T, VEC, DMAX, MASK_OOB, RCP>;
   int err = repro::allow_smem(kernel, smem);
   if (err) return err;
@@ -81,12 +83,12 @@ int launch(const dec::Args& a, const void* k, const void* v, int b, int s,
 
 template <typename T, int VEC>
 int dispatch(const dec::Args& a, const void* k, const void* v, int b, int s,
-             bool mask_oob, bool rcp, cudaStream_t stream) {
+             size_t smem, bool mask_oob, bool rcp, cudaStream_t stream) {
   return dec::with_dmax<T, VEC>(a.d, [&](auto dm) {
     return repro::with_bool(mask_oob, [&](auto mo) {
       return repro::with_bool(rcp, [&](auto r) {
         return launch<T, VEC, decltype(dm)::value, decltype(mo)::value,
-                      decltype(r)::value>(a, k, v, b, s, stream);
+                      decltype(r)::value>(a, k, v, b, s, smem, stream);
       });
     });
   });
@@ -103,34 +105,38 @@ int dispatch(const dec::Args& a, const void* k, const void* v, int b, int s,
 // `steps_per_split`, every range non-empty; with splits > 1, part_acc
 // ([b, hq, splits, d] fp32), part_ml ([b, hq, splits, 2] fp32) and
 // counters ([b, hkv * ceil(group / 8)] int32, all 0) are device buffers.
-// Returns the launch's CUDA error code; a tile that does not fit 227 KB of
-// shared memory is refused (cudaErrorInvalidValue).
+// `smem` is the wrapper's figure for a block's shared memory
+// (flash_decode.py: tile_layout); it is launched as given, and refused
+// (cudaErrorInvalidValue) unless it is the layout the kernel uses and fits
+// 227 KB. Returns the launch's CUDA error code.
 extern "C" int repro_flash_decode_attention(
     const void* q, const void* k, const void* v, const void* kv_len,
     void* out, void* part_acc, void* part_ml, void* counters, int b, int hq,
     int hkv, int d, int s, int chunk, int lds, int splits,
-    int steps_per_split, float scale, int dtype, int vec, int mask_oob,
-    int rcp, void* stream) {
+    int steps_per_split, int smem, float scale, int dtype, int vec,
+    int mask_oob, int rcp, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   const int n_chunks = chunk > 0 ? (s + chunk - 1) / chunk : 0;
   if (chunk < 1 || lds < d || splits < 1 || steps_per_split < 1 ||
       static_cast<long long>(splits) * steps_per_split < n_chunks ||
       static_cast<long long>(splits - 1) * steps_per_split >= n_chunks ||
-      (splits > 1 && (!part_acc || !part_ml || !counters))) {
+      (splits > 1 && (!part_acc || !part_ml || !counters)) || smem < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   dec::Args a{q, out, static_cast<const int*>(kv_len),
               static_cast<float*>(part_acc), static_cast<float*>(part_ml),
               static_cast<int*>(counters), hq, hkv, d, lds, chunk,
               n_chunks * chunk, s, splits, steps_per_split, 0, scale};
+  const size_t sm = static_cast<size_t>(smem);
   if (dtype == repro::kBFloat16) {
     return vec == 8
-        ? dispatch<__nv_bfloat16, 8>(a, k, v, b, s, mask_oob, rcp, st)
-        : dispatch<__nv_bfloat16, 1>(a, k, v, b, s, mask_oob, rcp, st);
+        ? dispatch<__nv_bfloat16, 8>(a, k, v, b, s, sm, mask_oob, rcp, st)
+        : dispatch<__nv_bfloat16, 1>(a, k, v, b, s, sm, mask_oob, rcp, st);
   }
   if (dtype == repro::kFloat32) {
-    return vec == 4 ? dispatch<float, 4>(a, k, v, b, s, mask_oob, rcp, st)
-                    : dispatch<float, 1>(a, k, v, b, s, mask_oob, rcp, st);
+    return vec == 4
+        ? dispatch<float, 4>(a, k, v, b, s, sm, mask_oob, rcp, st)
+        : dispatch<float, 1>(a, k, v, b, s, sm, mask_oob, rcp, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -94,14 +94,19 @@ int slice_len(int step, int steps_per_split, int page, int n_pt) {
   return static_cast<int>(n < n_pt ? n : n_pt);
 }
 
+// Launches the wrapper's plan: `a.extra_bytes` must hold the block's table
+// slice and `smem` must be the block's layout.
 template <typename T, int VEC, int DMAX, bool MASK_OOB, bool RCP>
-int launch(dec::Args a, const void* k, const void* v, const int* table,
-           int b, int page, int n_pt, int num_pages, cudaStream_t stream) {
+int launch(const dec::Args& a, const void* k, const void* v, const int* table,
+           int b, int page, int n_pt, int num_pages, size_t smem,
+           cudaStream_t stream) {
   const int group = a.hq / a.hkv;
-  a.extra_bytes = 4 * slice_len(a.step, a.steps_per_split, page, n_pt);
-  const size_t smem =
-      dec::smem_bytes(group, a.d, a.step, a.lds, sizeof(T), a.extra_bytes);
-  if (smem > dec::kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  if (a.extra_bytes < 4 * slice_len(a.step, a.steps_per_split, page, n_pt) ||
+      smem != dec::smem_bytes(group, a.d, a.step, a.lds, sizeof(T),
+                              a.extra_bytes) ||
+      smem > dec::kMaxSmem) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   auto kernel = paged_decode_kernel<T, VEC, DMAX, MASK_OOB, RCP>;
   int err = repro::allow_smem(kernel, smem);
   if (err) return err;
@@ -121,13 +126,13 @@ int launch(dec::Args a, const void* k, const void* v, const int* table,
 template <typename T, int VEC>
 int dispatch(const dec::Args& a, const void* k, const void* v,
              const int* table, int b, int page, int n_pt, int num_pages,
-             bool mask_oob, bool rcp, cudaStream_t stream) {
+             size_t smem, bool mask_oob, bool rcp, cudaStream_t stream) {
   return dec::with_dmax<T, VEC>(a.d, [&](auto dm) {
     return repro::with_bool(mask_oob, [&](auto mo) {
       return repro::with_bool(rcp, [&](auto r) {
         return launch<T, VEC, decltype(dm)::value, decltype(mo)::value,
                       decltype(r)::value>(a, k, v, table, b, page, n_pt,
-                                          num_pages, stream);
+                                          num_pages, smem, stream);
       });
     });
   });
@@ -142,14 +147,17 @@ int dispatch(const dec::Args& a, const void* k, const void* v,
 // as for repro_flash_decode_attention. The table's n_pt * page rows walk
 // in steps of `step` rows, split into `splits` non-empty ranges of
 // `steps_per_split`; with splits > 1, part_acc, part_ml and counters are
-// the device buffers of repro_flash_decode_attention.
+// the device buffers of repro_flash_decode_attention. `extra_bytes` (the
+// table slice) and `smem` are the wrapper's figures (flash_decode.py:
+// paged_launch_plan), launched as given and refused unless the slice holds
+// a block's pages and `smem` is the kernel's layout within 227 KB.
 extern "C" int repro_paged_decode_attention(
     const void* q, const void* k_pages, const void* v_pages,
     const void* page_table, const void* kv_len, void* out, void* part_acc,
     void* part_ml, void* counters, int b, int hq, int hkv, int d, int page,
     int n_pt, int num_pages, int step, int lds, int splits,
-    int steps_per_split, float scale, int dtype, int vec, int mask_oob,
-    int rcp, void* stream) {
+    int steps_per_split, int extra_bytes, int smem, float scale, int dtype,
+    int vec, int mask_oob, int rcp, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   auto pt = static_cast<const int*>(page_table);
   const long long rows = static_cast<long long>(n_pt) * page;
@@ -158,27 +166,31 @@ extern "C" int repro_paged_decode_attention(
       steps_per_split < 1 || rows > (1LL << 30) ||
       static_cast<long long>(splits) * steps_per_split < n_steps ||
       static_cast<long long>(splits - 1) * steps_per_split >= n_steps ||
-      (splits > 1 && (!part_acc || !part_ml || !counters))) {
+      (splits > 1 && (!part_acc || !part_ml || !counters)) ||
+      extra_bytes < 0 || smem < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int rows_i = static_cast<int>(rows);
   dec::Args a{q, out, static_cast<const int*>(kv_len),
               static_cast<float*>(part_acc), static_cast<float*>(part_ml),
               static_cast<int*>(counters), hq, hkv, d, lds, step, rows_i,
-              rows_i, splits, steps_per_split, 0, scale};
+              rows_i, splits, steps_per_split, extra_bytes, scale};
+  const size_t sm = static_cast<size_t>(smem);
   if (dtype == repro::kBFloat16) {
     return vec == 8 ? dispatch<__nv_bfloat16, 8>(a, k_pages, v_pages, pt, b,
-                                                 page, n_pt, num_pages,
+                                                 page, n_pt, num_pages, sm,
                                                  mask_oob, rcp, st)
                     : dispatch<__nv_bfloat16, 1>(a, k_pages, v_pages, pt, b,
-                                                 page, n_pt, num_pages,
+                                                 page, n_pt, num_pages, sm,
                                                  mask_oob, rcp, st);
   }
   if (dtype == repro::kFloat32) {
     return vec == 4 ? dispatch<float, 4>(a, k_pages, v_pages, pt, b, page,
-                                         n_pt, num_pages, mask_oob, rcp, st)
+                                         n_pt, num_pages, sm, mask_oob, rcp,
+                                         st)
                     : dispatch<float, 1>(a, k_pages, v_pages, pt, b, page,
-                                         n_pt, num_pages, mask_oob, rcp, st);
+                                         n_pt, num_pages, sm, mask_oob, rcp,
+                                         st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

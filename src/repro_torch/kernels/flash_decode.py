@@ -112,8 +112,10 @@ def _round16(n: int) -> int:
 
 def tile_layout(step: int, d: int, group: int, itemsize: int, vec: int,
                 extra_bytes: int = 0) -> tuple[int, int]:
-    """(tile row stride in elements, shared memory bytes of a block), as
-    ``repro::decode::smem_bytes`` computes them.
+    """(tile row stride in elements, shared memory bytes of a block). The
+    wrapper plans splits with these figures and passes them to the
+    launcher, which launches them as given and refuses (a raised launch
+    error) any that ``repro::decode::smem_bytes`` does not reproduce.
 
     A block holds up to 8 queries, the warps' (m, l) and their merge
     weights in fp32, a Rows policy's ``extra_bytes`` (the paged kernel's
@@ -157,16 +159,25 @@ def _subgroups(group: int) -> int:
 
 
 _COUNTERS: dict = {}        # device -> int32 counters, 0 between launches
+_RETIRED: list = []         # outgrown counters, kept: a graph may hold them
 
 
 def _counters(device, n: int) -> torch.Tensor:
     """The split-KV kernels' per-device counters (at least ``n``),
-    allocated zeroed once: every launch leaves them at 0."""
+    allocated zeroed once: every launch leaves them at 0.
+
+    A buffer is never freed: a CUDA graph captured on it keeps its
+    pointer, so one that is outgrown is retired, not released. The slots
+    are shared by every stream of the device: the port launches its
+    decode calls on one stream (the engine's and the agents'), and two
+    calls that overlap on two streams would race on them."""
     buf = _COUNTERS.get(device)
     if buf is None or buf.numel() < n:
         if torch.cuda.is_current_stream_capturing():
             raise RuntimeError("the decode-attention counters must be "
                                "allocated by a call before graph capture")
+        if buf is not None:
+            _RETIRED.append(buf)
         buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
         _COUNTERS[device] = buf
     return buf
@@ -396,7 +407,7 @@ def _launch(variant, q, k, v, kv_len, sm_scale):
     code = lib.repro_flash_decode_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
         out.data_ptr(), *merge, b, hq, hkv, dh, s, plan["chunk"],
-        plan["lds"], plan["splits"], plan["steps_per_split"],
+        plan["lds"], plan["splits"], plan["steps_per_split"], plan["smem"],
         float(sm_scale), _build.dtype_code(q), plan["vec"],
         int(variant.mask_oob), int(variant.use_reciprocal),
         _build.stream_ptr(q.device))
@@ -601,7 +612,8 @@ def paged_flash_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         page_table.data_ptr(), kv_len.data_ptr(), out.data_ptr(), *merge,
         b, hq, hkv, dh, page, n_pt, n_pages, PAGED_STEP, plan["lds"],
-        plan["splits"], plan["steps_per_split"], float(sm_scale),
+        plan["splits"], plan["steps_per_split"], plan["extra_bytes"],
+        plan["smem"], float(sm_scale),
         _build.dtype_code(q), plan["vec"], int(variant.mask_oob),
         int(variant.use_reciprocal), _build.stream_ptr(q.device))
     _build.check(lib, code, "paged_flash_decode_attention")

@@ -15,6 +15,7 @@ points raise without a GPU; ``chip_smoke.py`` fails without one).
 """
 
 import ast
+import ctypes
 import dataclasses
 import functools
 import os
@@ -510,6 +511,28 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "repro"), \
                 f"{path.relative_to(REPO)} imports {mod}"
+
+
+_C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
+            "int": ctypes.c_int, "float": ctypes.c_float,
+            "long long": ctypes.c_longlong}
+
+
+def test_library_signatures_match_the_c_interface():
+    """``_build.SIGNATURES`` gives ctypes each ``extern "C"`` launcher of
+    ``csrc/`` with its parameters' types in order: a launcher that gains a
+    parameter (the decode ones take the wrapper's shared-memory figure)
+    and a table that does not would pass the wrong values."""
+    import re
+    found = {}
+    for src in sorted(_build.CSRC.glob("*.cu")):
+        for name, params in re.findall(
+                r'extern "C" int (repro_\w+)\(([^)]*)\)', src.read_text()):
+            types = [" ".join(p.split()[:-1]) for p in params.split(",")]
+            found[name] = [_C_TYPES[t] for t in types]
+    assert set(found) == set(_build.SIGNATURES)
+    for name, argtypes in _build.SIGNATURES.items():
+        assert list(argtypes) == found[name], name
 
 
 def test_cpu_tensors_never_touch_the_kernel_library(monkeypatch):
