@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (an H100).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
 
 Phases, each of which fails the run (non-zero exit) on any error:
 
@@ -19,6 +19,15 @@ Phases, each of which fails the run (non-zero exit) on any error:
    flags at kv_len 0, 1, the cache's rows and each split boundary +- 1,
    three times (eager, then replayed in CUDA graphs), at a bf16
    tolerance that must also flag each request's last 64 rows missing.
+2b. Shapes: rmsnorm and silu (shipped genomes) at the qwen2 and
+   h2o-danube decode and prefill widths and at their two largest suite
+   shapes (L2 cold), each beside its bound and the launch floor (the
+   library's empty kernel timed alike); the MLP half of a qwen2 decode
+   layer (rmsnorm, the gate/up product, silu, the down product) 24 times
+   in one CUDA graph; and each baseline genome over its suite, timed as
+   Table 2 times it. With ``--parent DIR`` (a checkout of the parent
+   commit) the parent's kernels are timed too, each run in its own
+   process, in turns parent, change, change, parent.
 3. Tune: the Astra agent loop (``optimize_all``, greedy, 5 rounds) on the
    paper's three kernels and both decode attentions (``flash_decode``,
    ``paged_flash_decode``), tested on the card in fp32 and bf16 at the
@@ -28,6 +37,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
    geomean over the paper's three), the same rows for the two decode
    kernels, and Table 3 (the single-agent baseline timed the same way),
    then reintegrates the best genomes.
+3b. Tuned at the shapes: the shipped and the reintegrated rmsnorm and silu
+   at every shape of 2b, each held against its plain version at the
+   tolerance stated and timed beside the parent's shipped kernel of 2b.
 4. Serve: ``LLMEngine`` at full width in bf16 with seeded random weights,
    16 greedy requests of 32 tokens each: qwen2-0.5b from the paged pool,
    once with the shipped genomes and once with the reintegrated ones;
@@ -305,6 +317,9 @@ SOURCES = {
                      "src/repro/kernels/flash_decode.py:150"),
 }
 REPS_COLD = 100
+CHAIN_LAYERS = 24
+CHAIN_LABEL = (f"qwen2 decode MLP half x {CHAIN_LAYERS} layers (rmsnorm, "
+               "gate/up, silu, down; 8 rows bf16) in one graph")
 
 
 def cold_ms(fn) -> float:
@@ -312,6 +327,183 @@ def cold_ms(fn) -> float:
     before it: the profiling agent's method."""
     from repro_torch.core.agents import time_launches
     return float(np.median(time_launches(fn, REPS_COLD))) / 1e3
+
+# The redesign's shapes for rmsnorm and silu (kernel, rows, d, dtype, weight
+# dtype, L2 cold): qwen2 and h2o-danube decode and the h2o prefill at their
+# widths, timed as 50 launches in a graph; the two largest suite shapes of
+# each kernel in both dtypes, single launches after a 64 MB read (the
+# profiling agent's method; the suite's weight in the test's dtype)
+BF16, F32 = torch.bfloat16, torch.float32
+SHAPES = (
+    ("fused_add_rmsnorm", 8, 896, BF16, F32, False),
+    ("fused_add_rmsnorm", 8, 2560, BF16, F32, False),
+    ("fused_add_rmsnorm", 4096, 2560, BF16, F32, False),
+    ("fused_add_rmsnorm", 1024, 4096, F32, F32, True),
+    ("fused_add_rmsnorm", 1024, 4096, BF16, BF16, True),
+    ("fused_add_rmsnorm", 512, 14336, F32, F32, True),
+    ("fused_add_rmsnorm", 512, 14336, BF16, BF16, True),
+    ("silu_and_mul", 8, 4864, BF16, None, False),
+    ("silu_and_mul", 8, 6912, BF16, None, False),
+    ("silu_and_mul", 4096, 6912, BF16, None, False),
+    ("silu_and_mul", 64, 8192, F32, None, True),
+    ("silu_and_mul", 64, 8192, BF16, None, True),
+    ("silu_and_mul", 16, 12288, F32, None, True),
+    ("silu_and_mul", 16, 12288, BF16, None, True),
+)
+
+
+def shape_label(kernel, rows, d, dtype, wdtype, cold) -> str:
+    w = f" w {str(wdtype)[6:]}" if wdtype is not None else ""
+    return (f"{kernel} [{rows}, {d}] {str(dtype)[6:]}{w}"
+            f"{' L2 cold' if cold else ''}")
+
+
+def shape_bytes(kernel, rows, d, dtype, wdtype) -> int:
+    """Bytes the call must move: each input read once, each output written
+    once (rmsnorm: x, r in, y, r' out, and w; silu: [rows, 2d] in, [rows,
+    d] out)."""
+    if kernel == "silu_and_mul":
+        return 3 * rows * d * dtype.itemsize
+    return 4 * rows * d * dtype.itemsize + d * wdtype.itemsize
+
+
+def shape_args(kernel, rows, d, dtype, wdtype) -> tuple:
+    """The inputs of a ``SHAPES`` row on the card, from fixed seeds."""
+    if kernel == "silu_and_mul":
+        return (randn((rows, 2 * d), dtype, 4, scale=3.0),)
+    x, r = randn((rows, d), dtype, 1), randn((rows, d), dtype, 2)
+    return x, r, (randn((d,), F32, 3) * 0.1 + 1.0).to(wdtype)
+
+
+def shape_call(kernel, args, genome):
+    """The wrapper's call on ``args`` with ``genome``: public wrapper calls
+    only, so the parent commit's package runs it too."""
+    from repro_torch.kernels import fused_add_rmsnorm as rms
+    from repro_torch.kernels import silu_and_mul as silu
+    if kernel == "silu_and_mul":
+        return functools.partial(silu.silu_and_mul, *args, genome)
+    return functools.partial(rms.fused_add_rmsnorm, *args, 1e-6, genome)
+
+
+def suite_baseline_us(kernel) -> float:
+    """The baseline genome's geomean over its suite (both dtypes), timed
+    as Table 2 times it: single launches, L2 flushed, median of 100."""
+    from repro_torch.core import ProfilingAgent, TestingAgent
+    from repro_torch.kernels.registry import get_space, suite_tests
+    space = get_space(kernel)
+    tests = suite_tests(space, TestingAgent())
+    return ProfilingAgent(backend="cuda").profile(
+        space, space.baseline, tests).geomean_latency_us
+
+
+def time_shapes() -> list:
+    """Each of ``SHAPES`` through the shipped genomes, the decode chain,
+    and each baseline over its suite, with the ``repro_torch`` on
+    ``sys.path``: [{label, us}]."""
+    from repro_torch.kernels import ops
+    out = []
+    for spec in SHAPES:
+        timer = cold_ms if spec[5] else device_ms
+        call = shape_call(spec[0], shape_args(*spec[:5]),
+                          ops.get_variant(spec[0]))
+        out.append({"label": shape_label(*spec), "us": timer(call) * 1e3})
+    out.append({"label": CHAIN_LABEL, "us": device_ms(
+        decode_chain(), reps=1, rounds=20) * 1e3})
+    for kernel in ("fused_add_rmsnorm", "silu_and_mul"):
+        out.append({"label": f"{kernel} baseline genome, Table 2 geomean "
+                             "over its suite", "us": suite_baseline_us(kernel)})
+    return out
+
+
+def floor_us(cold: bool) -> float:
+    """The library's empty kernel, timed as a row of ``SHAPES`` is."""
+    from repro_torch.kernels import _build
+    lib = _build.library()
+    dev = torch.device("cuda")
+    timer = cold_ms if cold else device_ms
+    return timer(lambda: _build.check(lib, lib.repro_empty(
+        _build.stream_ptr(dev)), "empty")) * 1e3
+
+
+def _shapes_in(src: str) -> list:
+    """``time_shapes`` in a fresh process on the package under ``src``."""
+    import subprocess
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--time-shapes", src],
+        capture_output=True, text=True, timeout=900)
+    if proc.returncode:
+        raise RuntimeError(f"time-shapes on {src} failed:\n{proc.stdout}\n"
+                           f"{proc.stderr}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def phase_shapes(parent: str | None) -> dict:
+    """``time_shapes``: the change's times beside each row's bound and the
+    launch floor; with ``parent`` (a checkout of the parent commit) the
+    parent's times too, in turns parent, change, change, parent, each in
+    its own process. Returns the parent's times by label."""
+    own = os.path.join(ROOT, "src")
+    theirs = os.path.join(parent, "src") if parent else None
+    order = [("parent", theirs), ("change", own), ("change", own),
+             ("parent", theirs)] if parent else [("change", None)]
+    runs = {"parent": [], "change": []}
+    for who, src in order:
+        runs[who].append(_shapes_in(src) if src else time_shapes())
+    floors = {cold: floor_us(cold) for cold in (False, True)}
+    log(f"  launch floor (the empty kernel): {floors[False]:.2f} us in a "
+        f"graph, {floors[True]:.2f} us single after a 64 MB read")
+    for i, row in enumerate(runs["change"][0]):
+        spec = SHAPES[i] if i < len(SHAPES) else None
+        mine = [r[i]["us"] for r in runs["change"]]
+        text = (f"  {row['label']}: change "
+                + " / ".join(f"{t:.2f}" for t in mine) + " us")
+        if parent:
+            text += ", parent " + " / ".join(
+                f"{r[i]['us']:.2f}" for r in runs["parent"]) + " us"
+        if spec is not None:
+            kernel, rows, d, dtype, wdtype, cold = spec
+            bound = shape_bytes(kernel, rows, d, dtype, wdtype) \
+                / HBM_BYTES_S * 1e6
+            text += (f"; bound {bound:.3f} us (bytes), {bound / min(mine):.1%}"
+                     f" of it; floor {floors[cold]:.2f} us")
+        log(text)
+    return {r["label"]: [p[i]["us"] for p in runs["parent"]]
+            for i, r in enumerate(runs["change"][0])}
+
+
+def phase_tuned_shapes(parent: dict) -> bool:
+    """The shipped and the reintegrated rmsnorm and silu at every shape of
+    ``SHAPES``: each held against its plain version at ``TOL``, then timed
+    as the shapes phase times it, beside the parent's shipped kernel
+    there (``parent``: its times by label)."""
+    from repro_torch.kernels import fused_add_rmsnorm as rms
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import silu_and_mul as silu
+    from repro_torch.kernels.registry import get_space
+    ok = True
+    for spec in SHAPES:
+        kernel, cold = spec[0], spec[5]
+        args = shape_args(*spec[:5])
+        timer = cold_ms if cold else device_ms
+        text = []
+        for who, g in (("shipped", get_space(kernel).shipped),
+                       ("reintegrated", ops.get_variant(kernel))):
+            got = shape_call(kernel, args, g)()
+            want = silu.plain(g, *args) if kernel == "silu_and_mul" \
+                else rms.plain(g, *args, 1e-6)
+            errs = [compare(a, b) for a, b in zip(got, want)] \
+                if isinstance(got, tuple) else [compare(got, want)]
+            good = all(e[2] for e in errs)
+            ok &= good
+            text.append(f"{who} {timer(shape_call(kernel, args, g)) * 1e3:.2f}"
+                        f" us (max_abs {max(e[0] for e in errs):.3e} "
+                        f"{'ok' if good else 'MISMATCH'})")
+        label = shape_label(*spec)
+        if parent.get(label):
+            text.append("parent shipped " + " / ".join(
+                f"{t:.2f}" for t in parent[label]) + " us")
+        log(f"  {label}: " + "; ".join(text))
+    return ok
 
 
 def decode_plans():
@@ -510,6 +702,33 @@ def phase_kernels(rows_out: dict) -> bool:
                            f"{REPS_COLD}") if l2_cold
                 else "50 launches in a CUDA graph, L2 warm, median of 5"}
     return ok
+
+
+def decode_chain(layers: int = CHAIN_LAYERS):
+    """The MLP half of a qwen2-0.5b decode layer (8 rows, bf16), ``layers``
+    times: rmsnorm (fp32 weight, as served), the gate/up product, silu, the
+    down product; each layer's output and r' feed the next. The shipped
+    genomes. Returns a function that runs the chain and returns (h, r')."""
+    from repro_torch import configs
+    from repro_torch.kernels import fused_add_rmsnorm as rms
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import silu_and_mul as silu
+    cfg = configs.get("qwen2-0.5b")
+    d, d_ff = cfg.d_model, cfg.d_ff
+    x, r = randn((8, d), BF16, 1), randn((8, d), BF16, 2)
+    w = randn((d,), F32, 3) * 0.1 + 1.0
+    w_gu = randn((2 * d_ff, d), BF16, 5, scale=d ** -0.5)
+    w_down = randn((d, d_ff), BF16, 6, scale=d_ff ** -0.5)
+    g_rms, g_silu = (ops.get_variant("fused_add_rmsnorm"),
+                     ops.get_variant("silu_and_mul"))
+
+    def run():
+        h, res = x, r
+        for _ in range(layers):
+            y, res = rms.fused_add_rmsnorm(h, res, w, 1e-6, g_rms)
+            h = silu.silu_and_mul(y @ w_gu.T, g_silu) @ w_down.T
+        return h, res
+    return run
 
 
 def phase_tune() -> tuple[bool, dict, dict]:
@@ -766,10 +985,20 @@ def phase_reference_window() -> bool:
 
 
 def main() -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--parent", help="a checkout of the parent commit: the "
+                    "shapes phase times its rmsnorm and silu too")
+    ap.add_argument("--time-shapes", metavar="SRC", help=argparse.SUPPRESS)
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; this script runs only "
               "on an NVIDIA GPU", file=sys.stderr)
         return 1
+    if args.time_shapes:
+        sys.path.insert(0, os.path.abspath(args.time_shapes))
+        print(json.dumps(time_shapes()))
+        return 0
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels.registry import get_space
@@ -791,26 +1020,48 @@ def main() -> int:
             log("   " + line.strip())
     phase_s["build"] = time.perf_counter() - t_start
 
+    ok: dict = {}
+    rows: dict = {}
     t0 = time.perf_counter()
     log("phase 2: kernels against their plain versions on the card")
-    rows: dict = {}
-    ok2 = phase_kernels(rows)
-    ok2 &= phase_edges()
+    ok["kernels"] = phase_kernels(rows)
+    ok["kernels"] &= phase_edges()
     phase_s["kernels"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    log("phase 2b: rmsnorm and silu at the decode, prefill and largest "
+        "suite shapes" + (f", beside the parent in {args.parent}"
+                          if args.parent else ""))
+    parent_us = phase_shapes(args.parent)
+    phase_s["shapes"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     log("phase 3: tune (the Astra agent loop on the card)")
-    ok3, tune_counts, results = phase_tune()
+    ok["tune"], tune_counts, results = phase_tune()
     phase_s["tune"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    log("phase 3b: the shipped and reintegrated rmsnorm and silu at the "
+        "shapes of 2b, against their plain versions")
+    ok["tuned shapes"] = phase_tuned_shapes(parent_us)
+    phase_s["tuned shapes"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     log("phase 4: serve qwen2-0.5b with the shipped genomes, then the "
         "reintegrated; h2o-danube-1.8b with the reintegrated")
     tuned = {n: ops.get_variant(n) for n in results}
     ops.set_variants(**{n: get_space(n).shipped for n in results})
-    ok4a, shipped_counts = phase_serve("shipped genomes", SERVE)
+    ok["serve shipped"], shipped_counts = phase_serve("shipped genomes",
+                                                      SERVE)
     ops.set_variants(**tuned)
-    ok4b, serve_counts = phase_serve("reintegrated genomes", SERVE)
-    ok4c, h2o_counts = phase_serve("reintegrated genomes", SERVE_H2O)
+    ok["serve"], serve_counts = phase_serve("reintegrated genomes", SERVE)
+    ok["serve h2o"], h2o_counts = phase_serve("reintegrated genomes",
+                                              SERVE_H2O)
     phase_s["serve"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    log("phase 5: reference on a small input")
+    ok["reference"] = phase_reference()
+    ok["reference"] &= phase_reference_window()
+    phase_s["reference"] = time.perf_counter() - t0
+    log("phase seconds: " + ", ".join(f"{k} {v:.1f}"
+                                      for k, v in phase_s.items()))
+    log(f"total {time.perf_counter() - t_start:.1f} s")
     for name, row in rows.items():
         row["launches"] = (tune_counts[name] + serve_counts[name]
                            + h2o_counts[name])
@@ -821,23 +1072,14 @@ def main() -> int:
     rows["merge_attn_states_lse"]["note"] = (
         "not on the serve path (the model inlines its merge); the tune "
         "phase (the agent loop) drives it")
-    t0 = time.perf_counter()
-    log("phase 5: reference on a small input")
-    ok5 = phase_reference()
-    ok5 &= phase_reference_window()
-    phase_s["reference"] = time.perf_counter() - t0
-    log("phase seconds: " + ", ".join(f"{k} {v:.1f}"
-                                      for k, v in phase_s.items()))
-    log(f"total {time.perf_counter() - t_start:.1f} s")
     idle = [n for n, r in rows.items() if not r["launches"]]
     if idle:
         log(f"FAIL: no launch on the driven paths for {idle}")
     log(json.dumps({"kernels": [rows[n] for n in SOURCES]}))
     log(card)
-    ok = ok2 and ok3 and ok4a and ok4b and ok4c and ok5 and not idle
-    if not ok:
-        log(f"chip_smoke FAILED: kernels {ok2} tune {ok3} serve "
-            f"{ok4a}/{ok4b}/{ok4c} reference {ok5}")
+    if idle or not all(ok.values()):
+        log("chip_smoke FAILED: " + ", ".join(f"{k} {v}"
+                                              for k, v in ok.items()))
         return 1
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

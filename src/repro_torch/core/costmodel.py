@@ -15,18 +15,22 @@ What it charges, per kernel launch:
 * compute: fp32 instructions on the CUDA cores (one per lane per clock:
   67 TFLOP/s counts an FMA as two) plus special-function instructions
   (``ex2``, ``lg2``, ``rcp``, ``rsqrt``: 16 per clock per SM);
-* overhead: a launch floor per kernel and a small cost per extra wave of
-  blocks over the 132 SMs.
+* overhead: a launch floor per kernel, a small cost per extra wave of
+  blocks over the 132 SMs, and a device-memory round trip for each
+  dependent load a block's threads wait on in turn (one, for a kernel
+  whose loads all go out together).
 
 A block that needs more than 1,024 threads, more than 227 KB of shared
 memory or more than the SM's 65,536 registers cannot launch: ``validate``
 raises ``Infeasible`` and the evaluator screens the genome before any
 launch.
 
-Constants are the H100 SXM data sheet's. ``LAUNCH_S`` is calibrated on one
-measurement: ``fused_add_rmsnorm`` at 8 x 896 bf16, shipped genome,
-2.01 us (chip_smoke.py, H100 80GB HBM3 at 700 W), of which this model puts
-0.075 us on memory (8 blocks, one per row).
+Constants are the H100 SXM data sheet's, but two, measured by chip_smoke.py
+on an H100 80GB HBM3 at 700 W: ``LAUNCH_S`` is the library's empty kernel
+in a CUDA graph (0.99 us), and ``ROUND_TRIP_S`` what the shipped
+``fused_add_rmsnorm`` at 8 x 896 bf16 (1.70 us; one round trip: its x, r
+and w go out together) takes above that floor and this model's memory
+term (0.073 us: 8 blocks, one a row).
 """
 
 from __future__ import annotations
@@ -48,7 +52,8 @@ SFU_RATE = 16 * SMS * CLOCK_HZ     # special-function instructions/s
 REGS_PER_SM = 65_536
 REGS = 32                          # per thread, what ptxas reports (20-52)
 SECTOR = 32                        # bytes per device-memory sector
-LAUNCH_S = 1.935e-6                # per launch (calibrated, see above)
+LAUNCH_S = 0.99e-6                 # per launch (measured, see above)
+ROUND_TRIP_S = 0.637e-6            # per dependent round trip (measured)
 WAVE_S = 0.1e-6                    # per wave of blocks after the first
 
 # (fp32 instructions, special-function instructions) of one operation as
@@ -87,8 +92,10 @@ class Cost:
     blocks: int = 1
     threads: int = 32               # per block
     smem_bytes: int = 0             # per block
+    regs: int = REGS                # per thread
     n_calls: int = 1
     waste_bytes: float = 0.0        # sectors fetched but not used
+    round_trips: int = 1            # dependent loads a thread waits on
     parts: tuple = ()               # the launches of a multi-launch call
 
     # --- launch limits ---
@@ -101,8 +108,8 @@ class Cost:
             if c.smem_bytes > SMEM_PER_BLOCK:
                 raise Infeasible(f"{c.smem_bytes / 1024:.0f} KB of shared "
                                  f"memory per block > 227 KB")
-            if REGS * c.threads > REGS_PER_SM:
-                raise Infeasible(f"{REGS * c.threads} registers per block "
+            if c.regs * c.threads > REGS_PER_SM:
+                raise Infeasible(f"{c.regs * c.threads} registers per block "
                                  f"> {REGS_PER_SM}")
 
     @property
@@ -113,7 +120,7 @@ class Cost:
         if self.parts:
             return max(c.pressure for c in self.parts)
         return max(self.smem_bytes / SMEM_PER_BLOCK,
-                   REGS * self.threads / REGS_PER_SM,
+                   self.regs * self.threads / REGS_PER_SM,
                    self.threads / MAX_THREADS)
 
     @property
@@ -122,7 +129,7 @@ class Cost:
             else MAX_BLOCKS_PER_SM
         return max(1, min(MAX_BLOCKS_PER_SM,
                           MAX_THREADS_PER_SM // max(self.threads, 1),
-                          REGS_PER_SM // max(REGS * self.threads, 1),
+                          REGS_PER_SM // max(self.regs * self.threads, 1),
                           by_smem))
 
     @property
@@ -154,7 +161,8 @@ class Cost:
     def overhead_s(self) -> float:
         if self.parts:
             return sum(c.overhead_s for c in self.parts)
-        return self.n_calls * LAUNCH_S + (self.waves - 1) * WAVE_S
+        return (self.n_calls * LAUNCH_S + (self.waves - 1) * WAVE_S
+                + self.round_trips * ROUND_TRIP_S)
 
     @property
     def latency_s(self) -> float:

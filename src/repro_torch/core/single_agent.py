@@ -70,8 +70,12 @@ def optimize_single_agent(kernel: str | KernelSpace, *, rounds: int = 5,
             value = min(knob.hi, getattr(s_prev, name) * 2)
         sugg = Suggestion(name, value, f"checklist: try {name}={value}")
         s_new = space.mutate(s_prev, knob, value)
-        pass_new, max_err = tester.validate(space, s_new, quick)
         perf_new = profiler.profile(space, s_new, quick)
+        # a genome that cannot launch fails unrun, as the loop's evaluator
+        # screens it (on the card its wrapper would raise)
+        pass_new, max_err = (False, 0.0) \
+            if perf_new.signals["infeasible"] \
+            else tester.validate(space, s_new, quick)
         log.append(LogEntry(r, s_new, pass_new, perf_new,
                             rationale=sugg.rationale, max_err=max_err))
         # accept unless it looks clearly worse on the (noisy) quick test

@@ -19,14 +19,6 @@ SMEM_PER_SM = 233_472               # shared memory bytes an SM (228 KB)
 SMEM_RESERVED = 1_024               # of it, held back for each block
 
 
-def resident_blocks(threads: int) -> int:
-    """Blocks of ``threads`` threads the card holds at once (its thread and
-    block limits per SM): a grid up to this size runs in one wave. The
-    kernels give each row its own block up to this size, and stack rows
-    in a block only past it."""
-    return SMS * max(1, min(MAX_BLOCKS_PER_SM, MAX_THREADS_PER_SM // threads))
-
-
 def resident_blocks_smem(threads: int, smem: int, cap: int) -> int:
     """Blocks of ``threads`` threads and ``smem`` bytes of shared memory
     the card holds at once, at most ``cap`` an SM (a kernel's launch

@@ -34,16 +34,16 @@ _L = ctypes.c_longlong
 # C signatures of the library: name -> argtypes (every function returns int,
 # the CUDA error code of its launch, except the error-string helper)
 SIGNATURES = {
-    "repro_fused_add_rmsnorm": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _I,
-                                _I, _I, _I, _I, _I, _I, _P),
-    "repro_silu_and_mul": (_P, _P, _P, _I, _I, _L, _I, _I, _I, _I, _I, _I,
-                           _I, _P),
+    "repro_fused_add_rmsnorm": (_P,) * 6 + (_I, _I, _F) + (_I,) * 10
+    + (_P,),
+    "repro_silu_and_mul": (_P, _P, _P, _I, _I, _L) + (_I,) * 8 + (_P,),
     "repro_merge_attn_states": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                 _I, _I, _I, _P),
     "repro_paged_decode_attention": (_P,) * 9 + (_I,) * 13
     + (_F, _I, _I, _I, _I, _P),
     "repro_flash_decode_attention": (_P,) * 8 + (_I,) * 10
     + (_F, _I, _I, _I, _I, _P),
+    "repro_empty": (_P,),
 }
 
 _lib = None

@@ -1,8 +1,9 @@
 // Helpers shared by the port's CUDA kernels: fp32 <-> storage-type
-// conversion, 16-byte vector loads and stores, cp.async copies, a
-// block-wide sum, paper Kernel 1's LSE merge math, the dispatch of
-// run-time genome flags to template instantiations, and the split-KV walk
-// of the two decode-attention kernels (namespace repro::decode).
+// conversion, 16-byte vector loads and stores, raw vectors held in
+// registers, warp sums and row-group barriers, cp.async copies, paper
+// Kernel 1's LSE merge math, the dispatch of run-time genome flags to
+// template instantiations, and the split-KV walk of the two
+// decode-attention kernels (namespace repro::decode).
 //
 // Every kernel computes in fp32 and stores in the tensor's own type
 // (float or __nv_bfloat16). Dtype codes passed across the C interface:
@@ -71,25 +72,47 @@ __device__ __forceinline__ void store_vec(T* p, const float* in) {
   *reinterpret_cast<uint4*>(p) = raw;
 }
 
-// Sum of v over the block: warp shuffles, then one partial per warp in
-// `scratch` (>= 32 floats of shared memory), then warp 0. blockDim.x must
-// be a multiple of 32. Every thread gets the total.
-__device__ __forceinline__ float block_sum(float v, float* scratch) {
+// Sum of v over the warp, in every lane.
+__device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  if (lane == 0) scratch[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    const int n_warps = blockDim.x >> 5;
-    v = lane < n_warps ? scratch[lane] : 0.f;
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-    if (lane == 0) scratch[0] = v;
+  return v;
+}
+
+// Barrier `id` (0..15) over the first n threads that reach it (n a
+// multiple of 32): a row group of a block waits for its own warps only.
+__device__ __forceinline__ void named_barrier(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// --- VEC elements of E held raw in 32-bit registers ---------------------
+
+// A vector's raw bits: loaded in one access (16 bytes, or one element),
+// widened to fp32 element by element where it is used.
+template <typename E, int VEC>
+struct Raw {
+  static constexpr int kBytes = VEC * static_cast<int>(sizeof(E));
+  static constexpr int kWords = (kBytes + 3) / 4;
+  alignas(16) uint32_t w[kWords];
+
+  __device__ __forceinline__ float operator[](int k) const {
+    return to_f(reinterpret_cast<const E*>(w)[k]);
   }
-  __syncthreads();
-  return scratch[0];
+};
+
+// Load VEC elements at p: 16-byte accesses (p 16-byte aligned) when they
+// fill a multiple of 16 bytes, else one element.
+template <typename E, int VEC>
+__device__ __forceinline__ void load_raw(const E* p, Raw<E, VEC>& r) {
+  if constexpr (Raw<E, VEC>::kBytes % 16 == 0) {
+#pragma unroll
+    for (int i = 0; i < Raw<E, VEC>::kBytes / 16; ++i) {
+      reinterpret_cast<uint4*>(r.w)[i] = reinterpret_cast<const uint4*>(p)[i];
+    }
+  } else {
+    static_assert(VEC == 1, "a vector is 16 bytes or one element");
+    *reinterpret_cast<E*>(r.w) = *p;
+  }
 }
 
 // --- 16-byte asynchronous copies (cp.async), global -> shared ------------

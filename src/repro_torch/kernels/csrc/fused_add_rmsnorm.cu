@@ -5,56 +5,66 @@
 // baseline _pass1_kernel + _pass2_kernel).
 //
 //   r' = x + r;  y = r' * rsqrt(mean(r'^2) + eps) * w
-//   returns y and r', both in the input dtype; w is fp32.
+//   returns y and r', both in the input dtype T; w is fp32 or T, read in
+//   its own dtype and widened in registers (a bf16 value widens exactly).
 //
 // What bounds it on the H100: bytes. Per row it reads x and r and writes y
-// and r' (4 * d elements) plus the d fp32 weights, and does ~5 flops per
+// and r' (4 * d elements) plus the d weights, and does ~5 flops per
 // element, far below the ~295 flops/byte the card needs to be compute
-// bound. At decode (8 rows of 896) the whole call moves ~60 KB, so it is
-// launch bound in practice.
+// bound. At decode (8 rows of 896) the whole call moves ~60 KB, so what
+// counts there is the chain of dependent steps: launch, one round trip to
+// memory, the reduction, the stores.
 //
-// Design: a block of `groups` row groups of `tpr` threads (a multiple of
-// 32) takes up to block_rows consecutive rows, `groups` at a time; with
-// one row per block (the wrapper's choice while one-row blocks fit the
-// card in one wave, so at every decode and prefill step of the served
-// model) the whole block takes its row. Each thread reads x
-// and r with 16-byte vector loads (8 bf16 or 4 fp32) when the width and
-// pointers allow; the sum of squares is reduced with warp shuffles, then
-// across the warps through shared memory.
+// One pass (the shipped form). A block is `groups` row groups of `tpr`
+// threads (whole warps) and takes block_rows consecutive rows; group g
+// takes rows g, g + groups, ... of them. A thread owns the row's 16-byte
+// vectors t, t + tpr, ... (NV of them at most, a compile-time count):
+//   - its x, r and w vectors are loaded together, before any reduction,
+//     so a row costs one round trip to memory; w stays in registers for
+//     the group's later rows;
+//   - r' stays in fp32 registers (each thread normalises only the entries
+//     it added), and is stored at once;
+//   - the sum of squares is reduced by warp shuffles, then, for a row of
+//     several warps, by one exchange of per-warp partials behind one
+//     barrier of the group's own warps (bar.sync g, tpr; the partials are
+//     double-buffered, so no second barrier guards their reuse); a row of
+//     one warp has no barrier at all;
+//   - a group with another row to go queues that row's x and r with
+//     16-byte cp.async copies into its own slot of shared memory before it
+//     reduces the current row, so loads stay in flight across the
+//     reduction; each thread later reads back only the vectors it queued
+//     (no barrier). Single-element rows (a width that is not a multiple of
+//     the vector, or misaligned pointers) load each row when they reach it.
+// Two pass (the paper's baseline): pass 1 writes r' in T and an fp32 sum
+// of squares per row; pass 2 re-reads the rounded r' and normalises (two
+// launches, one more round trip of r').
 // Genome flags are template parameters, every combination instantiated:
-//   one pass (the shipped form): r' stays in fp32 in shared memory between
-//       the reduction and the normalisation, so each byte crosses device
-//       memory once;
-//   two pass: pass 1 writes r' in the input dtype and an fp32 sum of
-//       squares per row; pass 2 re-reads the rounded r' and normalises
-//       (two launches, one more round trip of r');
 //   RSQRT   rsqrtf; else 1 / sqrtf;
-//   ACCUM   the add in fp32; else rounded to the input dtype first.
+//   ACCUM   the add in fp32; else rounded to T first.
 #include "common.cuh"
 
 namespace {
 
 using repro::from_f;
-using repro::load_vec;
+using repro::load_raw;
+using repro::Raw;
 using repro::round_to;
-using repro::store_vec;
-using repro::to_f;
 
-// Sum of v over the row group of this thread (blockDim.x threads, a
-// multiple of 32): warp shuffles, one partial per warp in `scratch`, then
-// every thread adds its group's partials. Every thread of the block must
-// call it (it synchronises the block).
-__device__ __forceinline__ float group_sum(float v, float* scratch) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  const int wpg = blockDim.x >> 5;
-  const int warp = threadIdx.x >> 5;
-  if ((threadIdx.x & 31) == 0) scratch[threadIdx.y * wpg + warp] = v;
-  __syncthreads();
-  float total = 0.f;
-  for (int k = 0; k < wpg; ++k) total += scratch[threadIdx.y * wpg + k];
-  __syncthreads();  // scratch is reused by the next row
-  return total;
+constexpr int kMaxGroups = 16;    // named barriers 0..15, one a row group
+
+// 32-bit registers a thread's row data takes: r' in fp32 and w raw, NV
+// vectors of each, and for single elements the two more that each one's
+// own addresses cost. Above 32 a block is held to 512 threads (128
+// registers a thread), else 1,024 (64). The wrapper applies the same rule
+// (fused_add_rmsnorm.py: block_limit).
+template <typename W, int VEC, int NV>
+constexpr int data_words() {
+  return NV * (VEC + Raw<W, VEC>::kWords + (VEC == 1 ? 2 : 0));
+}
+
+template <typename W, int VEC, int NV>
+constexpr int max_threads() {
+  return data_words<W, VEC, NV>() > 32 ? 512 : 1024;
 }
 
 template <bool RSQRT>
@@ -67,151 +77,189 @@ __device__ __forceinline__ float inv_rms(float sumsq, int d, float eps) {
   }
 }
 
-// x + r for VEC elements at xr + i, rr + i, widened to fp32 (rounded to T
-// first unless ACCUM).
+// The sum of v over the row group g of tpr threads: warp shuffles, then
+// (several warps) one exchange of per-warp partials through `partial`
+// (32 floats of this parity) behind the group's barrier.
+__device__ __forceinline__ float group_sum(float v, float* partial, int g,
+                                           int tpr) {
+  v = repro::warp_sum(v);
+  if (tpr == 32) return v;
+  const int lane = threadIdx.x & 31;
+  if (lane == 0) partial[threadIdx.x >> 5] = v;
+  repro::named_barrier(g, tpr);
+  return repro::warp_sum(lane < (tpr >> 5) ? partial[lane] : 0.f);
+}
+
+// s = x + r for one vector, widened to fp32 (rounded to T first unless
+// ACCUM).
 template <typename T, int VEC, bool ACCUM>
-__device__ __forceinline__ void add_rows(const T* xr, const T* rr, int i,
-                                         float* s) {
-  float rv[VEC];
-  if constexpr (VEC > 1) {
-    load_vec<T, VEC>(xr + i, s);
-    load_vec<T, VEC>(rr + i, rv);
-  } else {
-    s[0] = to_f(xr[i]);
-    rv[0] = to_f(rr[i]);
-  }
+__device__ __forceinline__ void add_vec(const Raw<T, VEC>& xv,
+                                        const Raw<T, VEC>& rv, float* s) {
 #pragma unroll
-  for (int k = 0; k < VEC; ++k) {
-    s[k] = ACCUM ? s[k] + rv[k] : round_to<T>(s[k] + rv[k]);
+  for (int e = 0; e < VEC; ++e) {
+    s[e] = ACCUM ? xv[e] + rv[e] : round_to<T>(xv[e] + rv[e]);
   }
 }
 
 template <typename T, int VEC>
-__device__ __forceinline__ void store_row(T* p, int i, const float* v) {
-  if constexpr (VEC > 1) {
-    store_vec<T, VEC>(p + i, v);
+__device__ __forceinline__ void store_row(T* p, const float* v) {
+  Raw<T, VEC> out;
+  T* e = reinterpret_cast<T*>(out.w);
+#pragma unroll
+  for (int k = 0; k < VEC; ++k) e[k] = from_f<T>(v[k]);
+  if constexpr (Raw<T, VEC>::kBytes == 16) {
+    *reinterpret_cast<uint4*>(p) = *reinterpret_cast<const uint4*>(out.w);
   } else {
-    p[i] = from_f<T>(v[0]);
+    *p = e[0];
   }
 }
 
-// One row: r' = x + r into r_s (fp32, shared) and res_out, the sum of
-// squares reduced over the block (GROUPED: over this thread's row group),
-// then y from r_s. Threads of a row that is not `live` still take part in
-// the reduction's barriers.
-template <typename T, int VEC, bool RSQRT, bool ACCUM, bool GROUPED>
-__device__ __forceinline__ void one_pass_row(
-    const T* __restrict__ xr, const T* __restrict__ rr,
-    const float* __restrict__ w, T* __restrict__ yr, T* __restrict__ ro,
-    bool live, int d, float eps, float* r_s, float* scratch) {
-  float ss = 0.f;
-  if (live) {
-    for (int i = threadIdx.x * VEC; i < d; i += blockDim.x * VEC) {
-      float s[VEC];
-      add_rows<T, VEC, ACCUM>(xr, rr, i, s);
+template <typename T, typename W, int VEC, int NV, bool RSQRT, bool ACCUM>
+__global__ void __launch_bounds__(max_threads<W, VEC, NV>())
+    one_pass_kernel(const T* __restrict__ x, const T* __restrict__ res,
+                    const W* __restrict__ w, T* __restrict__ y,
+                    T* __restrict__ res_out, int rows, int d, float eps,
+                    int block_rows) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr bool kStage = VEC > 1;     // the next row queued by cp.async
+  const int tpr = blockDim.x, t = threadIdx.x, g = threadIdx.y;
+  const int n_vec = d / VEC;
+  const int row_end = min(rows, (blockIdx.x + 1) * block_rows);
+  int row = blockIdx.x * block_rows + g;
+  float* partial = reinterpret_cast<float*>(smem) + g * 64;   // 2 x 32
+  uint4* stage = reinterpret_cast<uint4*>(smem + blockDim.y * 64 * 4) +
+                 static_cast<size_t>(g) * 2 * NV * tpr;      // x, r slots
+  if (row >= row_end) return;
+  Raw<W, VEC> wv[NV];
+  float s[NV][VEC];
+  // x, r (and, for the group's first row, w) of row rw: one round trip
+  auto load_row = [&](int rw, bool with_w) {
+    const long long base = static_cast<long long>(rw) * d;
 #pragma unroll
-      for (int k = 0; k < VEC; ++k) {
-        r_s[i + k] = s[k];
-        ss += s[k] * s[k];
+    for (int k = 0; k < NV; ++k) {
+      const int v = t + k * tpr;
+      if (v < n_vec) {
+        Raw<T, VEC> xv, rv;
+        load_raw(x + base + v * VEC, xv);
+        load_raw(res + base + v * VEC, rv);
+        if (with_w) load_raw(w + v * VEC, wv[k]);
+        add_vec<T, VEC, ACCUM>(xv, rv, s[k]);
       }
-      store_row<T, VEC>(ro, i, s);
     }
-  }
-  float total;
-  if constexpr (GROUPED) {
-    total = group_sum(ss, scratch);
-  } else {
-    total = repro::block_sum(ss, scratch);
-  }
-  const float inv = inv_rms<RSQRT>(total, d, eps);
-  if (live) {
-    // each thread reads back only the r' entries it wrote itself
-    for (int i = threadIdx.x * VEC; i < d; i += blockDim.x * VEC) {
-      float out[VEC];
+  };
+  load_row(row, true);
+  for (int it = 0;; ++it) {
+    const int next = row + blockDim.y;
+    const bool more = next < row_end;
+    if (more && kStage) {
+      const long long nb = static_cast<long long>(next) * d;
 #pragma unroll
-      for (int k = 0; k < VEC; ++k) out[k] = r_s[i + k] * inv * w[i + k];
-      store_row<T, VEC>(yr, i, out);
+      for (int k = 0; k < NV; ++k) {
+        const int v = t + k * tpr;
+        if (v < n_vec) {
+          repro::cp_async16_or_zero(stage + k * tpr + t, x + nb + v * VEC,
+                                    true);
+          repro::cp_async16_or_zero(stage + (NV + k) * tpr + t,
+                                    res + nb + v * VEC, true);
+        }
+      }
+      repro::cp_async_commit();
+    }
+    const long long base = static_cast<long long>(row) * d;
+    float ss = 0.f;
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+      const int v = t + k * tpr;
+      if (v < n_vec) {
+        store_row<T, VEC>(res_out + base + v * VEC, s[k]);
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) ss += s[k][e] * s[k][e];
+      }
+    }
+    const float inv =
+        inv_rms<RSQRT>(group_sum(ss, partial + (it & 1) * 32, g, tpr), d,
+                       eps);
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+      const int v = t + k * tpr;
+      if (v < n_vec) {
+        float out[VEC];
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) out[e] = s[k][e] * inv * wv[k][e];
+        store_row<T, VEC>(y + base + v * VEC, out);
+      }
+    }
+    if (!more) break;
+    row = next;
+    if constexpr (kStage) {
+      repro::cp_async_wait<0>();        // this thread's copies landed
+#pragma unroll
+      for (int k = 0; k < NV; ++k) {
+        const int v = t + k * tpr;
+        if (v < n_vec) {
+          Raw<T, VEC> xv, rv;
+          *reinterpret_cast<uint4*>(xv.w) = stage[k * tpr + t];
+          *reinterpret_cast<uint4*>(rv.w) = stage[(NV + k) * tpr + t];
+          add_vec<T, VEC, ACCUM>(xv, rv, s[k]);
+        }
+      }
+    } else {
+      load_row(row, false);
     }
   }
 }
 
-// GROUPED = false: one row per block (blockIdx.x), the whole block on it.
-// GROUPED = true: block_rows rows per block, blockDim.y of them at a time.
-template <typename T, int VEC, bool RSQRT, bool ACCUM, bool GROUPED>
-__global__ void one_pass_kernel(const T* __restrict__ x,
-                                const T* __restrict__ res,
-                                const float* __restrict__ w,
-                                T* __restrict__ y, T* __restrict__ res_out,
-                                int rows, int d, float eps, int block_rows) {
-  extern __shared__ float smem[];
-  if constexpr (!GROUPED) {
-    const long long base = static_cast<long long>(blockIdx.x) * d;
-    one_pass_row<T, VEC, RSQRT, ACCUM, false>(
-        x + base, res + base, w, y + base, res_out + base, true, d, eps,
-        smem, smem + d);
-  } else {
-    float* r_s = smem + threadIdx.y * d;     // r' of this group's row
-    float* scratch = smem + blockDim.y * d;  // one partial per warp
-    const int row0 = blockIdx.x * block_rows;
-    const int row_end = min(rows, row0 + block_rows);
-    for (int first = row0; first < row_end; first += blockDim.y) {
-      const int row = first + threadIdx.y;
-      const long long base = static_cast<long long>(row) * d;
-      one_pass_row<T, VEC, RSQRT, ACCUM, true>(
-          x + base, res + base, w, y + base, res_out + base, row < row_end,
-          d, eps, r_s, scratch);
-    }
-  }
-}
-
+// Pass 1 of the baseline: r' in T and the fp32 sum of squares of each row.
 template <typename T, int VEC, bool ACCUM>
 __global__ void pass1_kernel(const T* __restrict__ x,
                              const T* __restrict__ res,
                              T* __restrict__ res_out,
                              float* __restrict__ sumsq, int rows, int d,
                              int block_rows) {
-  extern __shared__ float scratch[];
-  const int row0 = blockIdx.x * block_rows;
-  const int row_end = min(rows, row0 + block_rows);
-  for (int first = row0; first < row_end; first += blockDim.y) {
-    const int row = first + threadIdx.y;
-    const bool live = row < row_end;
+  __shared__ float partials[kMaxGroups * 64];
+  const int tpr = blockDim.x, g = threadIdx.y;
+  const int row_end = min(rows, (blockIdx.x + 1) * block_rows);
+  int it = 0;
+  for (int row = blockIdx.x * block_rows + g; row < row_end;
+       row += blockDim.y, ++it) {
     const long long base = static_cast<long long>(row) * d;
     float ss = 0.f;
-    if (live) {
-      for (int i = threadIdx.x * VEC; i < d; i += blockDim.x * VEC) {
-        float s[VEC];
-        add_rows<T, VEC, ACCUM>(x + base, res + base, i, s);
+    for (int i = threadIdx.x * VEC; i < d; i += tpr * VEC) {
+      Raw<T, VEC> xv, rv;
+      load_raw(x + base + i, xv);
+      load_raw(res + base + i, rv);
+      float s[VEC];
+      add_vec<T, VEC, ACCUM>(xv, rv, s);
 #pragma unroll
-        for (int k = 0; k < VEC; ++k) ss += s[k] * s[k];
-        store_row<T, VEC>(res_out + base, i, s);
-      }
+      for (int e = 0; e < VEC; ++e) ss += s[e] * s[e];
+      store_row<T, VEC>(res_out + base + i, s);
     }
-    const float total = group_sum(ss, scratch);
-    if (live && threadIdx.x == 0) sumsq[row] = total;
+    const float total =
+        group_sum(ss, partials + g * 64 + (it & 1) * 32, g, tpr);
+    if (threadIdx.x == 0) sumsq[row] = total;
   }
 }
 
-template <typename T, int VEC, bool RSQRT>
+// Pass 2 of the baseline: y from the rounded r' and the row's sum.
+template <typename T, typename W, int VEC, bool RSQRT>
 __global__ void pass2_kernel(const T* __restrict__ res_out,
                              const float* __restrict__ sumsq,
-                             const float* __restrict__ w, T* __restrict__ y,
+                             const W* __restrict__ w, T* __restrict__ y,
                              int rows, int d, float eps, int block_rows) {
-  const int row0 = blockIdx.x * block_rows;
-  const int row_end = min(rows, row0 + block_rows);
-  for (int row = row0 + threadIdx.y; row < row_end; row += blockDim.y) {
+  const int row_end = min(rows, (blockIdx.x + 1) * block_rows);
+  for (int row = blockIdx.x * block_rows + threadIdx.y; row < row_end;
+       row += blockDim.y) {
     const long long base = static_cast<long long>(row) * d;
     const float inv = inv_rms<RSQRT>(sumsq[row], d, eps);
     for (int i = threadIdx.x * VEC; i < d; i += blockDim.x * VEC) {
-      float r[VEC];
-      if constexpr (VEC > 1) {
-        load_vec<T, VEC>(res_out + base + i, r);
-      } else {
-        r[0] = to_f(res_out[base + i]);
-      }
+      Raw<T, VEC> rv;
+      Raw<W, VEC> wv;
+      load_raw(res_out + base + i, rv);
+      load_raw(w + i, wv);
+      float out[VEC];
 #pragma unroll
-      for (int k = 0; k < VEC; ++k) r[k] = r[k] * inv * w[i + k];
-      store_row<T, VEC>(y + base, i, r);
+      for (int e = 0; e < VEC; ++e) out[e] = rv[e] * inv * wv[e];
+      store_row<T, VEC>(y + base + i, out);
     }
   }
 }
@@ -219,7 +267,7 @@ __global__ void pass2_kernel(const T* __restrict__ res_out,
 struct Args {
   const void* x;
   const void* res;
-  const float* w;
+  const void* w;
   void* y;
   void* res_out;
   float* sumsq;
@@ -229,79 +277,125 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename T, int VEC, bool TWO_PASS, bool RSQRT, bool ACCUM,
-          bool GROUPED>
-int launch(const Args& a) {
-  const dim3 block(a.tpr, a.groups);
-  const int grid = (a.rows + a.block_rows - 1) / a.block_rows;
-  const size_t scratch = 32 * sizeof(float);
-  auto x = static_cast<const T*>(a.x);
-  auto res = static_cast<const T*>(a.res);
-  auto y = static_cast<T*>(a.y);
-  auto res_out = static_cast<T*>(a.res_out);
-  if constexpr (!TWO_PASS) {
-    const size_t smem =
-        static_cast<size_t>(a.groups) * a.d * sizeof(float) + scratch;
-    auto kernel = one_pass_kernel<T, VEC, RSQRT, ACCUM, GROUPED>;
-    int err = repro::allow_smem(kernel, smem);
-    if (err) return err;
-    kernel<<<grid, block, smem, a.stream>>>(x, res, a.w, y, res_out, a.rows,
-                                            a.d, a.eps, a.block_rows);
-    return static_cast<int>(cudaGetLastError());
-  } else {
-    pass1_kernel<T, VEC, ACCUM><<<grid, block, scratch, a.stream>>>(
-        x, res, res_out, a.sumsq, a.rows, a.d, a.block_rows);
-    int err = static_cast<int>(cudaGetLastError());
-    if (err) return err;
-    pass2_kernel<T, VEC, RSQRT><<<grid, block, 0, a.stream>>>(
-        res_out, a.sumsq, a.w, y, a.rows, a.d, a.eps, a.block_rows);
-    return static_cast<int>(cudaGetLastError());
+// Shared memory of a one-pass block: the groups' double-buffered partials,
+// then (a group with more than one row, 16-byte vectors) each group's slot
+// for its next row's x and r.
+template <int VEC, int NV>
+size_t one_pass_smem(const Args& a) {
+  size_t bytes = static_cast<size_t>(a.groups) * 64 * sizeof(float);
+  if (VEC > 1 && a.block_rows > a.groups) {
+    bytes += static_cast<size_t>(a.groups) * 2 * NV * a.tpr * 16;
   }
+  return bytes;
 }
 
-template <typename T, int VEC>
-int dispatch(const Args& a, bool two_pass, bool rsqrt, bool accum) {
-  return repro::with_bool(two_pass, [&](auto t) {
-    return repro::with_bool(rsqrt, [&](auto r) {
-      return repro::with_bool(accum, [&](auto f) {
-        return repro::with_bool(a.block_rows > 1, [&](auto g) {
-          return launch<T, VEC, decltype(t)::value, decltype(r)::value,
-                        decltype(f)::value, decltype(g)::value>(a);
-        });
+template <typename T, typename W, int VEC, int NV, bool RSQRT, bool ACCUM>
+int launch_one_pass(const Args& a) {
+  const int n_vec = a.d / VEC;
+  if (a.tpr * a.groups > max_threads<W, VEC, NV>() ||
+      static_cast<long long>(NV) * a.tpr < n_vec) {
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  }
+  auto kernel = one_pass_kernel<T, W, VEC, NV, RSQRT, ACCUM>;
+  const size_t smem = one_pass_smem<VEC, NV>(a);
+  int err = repro::allow_smem(kernel, smem);
+  if (err) return err;
+  const int grid = (a.rows + a.block_rows - 1) / a.block_rows;
+  kernel<<<grid, dim3(a.tpr, a.groups), smem, a.stream>>>(
+      static_cast<const T*>(a.x), static_cast<const T*>(a.res),
+      static_cast<const W*>(a.w), static_cast<T*>(a.y),
+      static_cast<T*>(a.res_out), a.rows, a.d, a.eps, a.block_rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, typename W, int VEC, bool RSQRT, bool ACCUM>
+int launch_two_pass(const Args& a) {
+  const dim3 block(a.tpr, a.groups);
+  const int grid = (a.rows + a.block_rows - 1) / a.block_rows;
+  pass1_kernel<T, VEC, ACCUM><<<grid, block, 0, a.stream>>>(
+      static_cast<const T*>(a.x), static_cast<const T*>(a.res),
+      static_cast<T*>(a.res_out), a.sumsq, a.rows, a.d, a.block_rows);
+  int err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  pass2_kernel<T, W, VEC, RSQRT><<<grid, block, 0, a.stream>>>(
+      static_cast<const T*>(a.res_out), static_cast<const float*>(a.sumsq),
+      static_cast<const W*>(a.w), static_cast<T*>(a.y), a.rows, a.d, a.eps,
+      a.block_rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The NV instantiation for nv vectors a thread: 1, 2 or 4 of 16 bytes;
+// 1, 2, 4, 8 or 16 single elements.
+template <int VEC, typename F>
+int with_nv(int nv, F&& f) {
+  switch (nv) {
+    case 1: return f(std::integral_constant<int, 1>{});
+    case 2: return f(std::integral_constant<int, 2>{});
+    case 4: return f(std::integral_constant<int, 4>{});
+    default: break;
+  }
+  if constexpr (VEC == 1) {
+    if (nv == 8) return f(std::integral_constant<int, 8>{});
+    if (nv == 16) return f(std::integral_constant<int, 16>{});
+  }
+  return static_cast<int>(cudaErrorInvalidConfiguration);
+}
+
+template <typename T, typename W, int VEC>
+int dispatch(const Args& a, int nv, bool two_pass, bool rsqrt, bool accum) {
+  return repro::with_bool(rsqrt, [&](auto r) {
+    return repro::with_bool(accum, [&](auto f) {
+      constexpr bool R = decltype(r)::value, A = decltype(f)::value;
+      if (two_pass) return launch_two_pass<T, W, VEC, R, A>(a);
+      return with_nv<VEC>(nv, [&](auto n) {
+        return launch_one_pass<T, W, VEC, decltype(n)::value, R, A>(a);
       });
     });
   });
 }
 
+template <typename T, typename W>
+int dispatch_vec(const Args& a, int vec, int nv, bool two_pass, bool rsqrt,
+                 bool accum) {
+  constexpr int kVec = 16 / sizeof(T);
+  if (vec == kVec) return dispatch<T, W, kVec>(a, nv, two_pass, rsqrt, accum);
+  if (vec == 1) return dispatch<T, W, 1>(a, nv, two_pass, rsqrt, accum);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
-// x, res, y, res_out: [rows, d] contiguous in `dtype`; w: [d] fp32;
-// sumsq: [rows] fp32 scratch (read only by the two-pass form). `vec` is 1
-// or the 16-byte width of the dtype (the wrapper checks the width and the
-// pointers' alignment); a block is tpr x groups threads (tpr a multiple of
-// 32, at most 1024 in all) and takes block_rows rows. Launches one kernel,
-// or two when two_pass is 1.
+// x, res, y, res_out: [rows, d] contiguous in `dtype`; w: [d] in `wdtype`
+// (float32, or `dtype`); sumsq: [rows] fp32 scratch (read only by the
+// two-pass form). `vec` is 1 or the 16-byte width of the dtype (the
+// wrapper checks the width and the pointers' alignment); `nv` the vectors
+// a one-pass thread holds (nv * tpr * vec >= d). A block is tpr x groups
+// threads (tpr a multiple of 32, groups at most 16) and takes block_rows
+// rows. Launches one kernel, or two when two_pass is 1.
 extern "C" int repro_fused_add_rmsnorm(const void* x, const void* res,
                                        const void* w, void* y, void* res_out,
                                        void* sumsq, int rows, int d,
-                                       float eps, int dtype, int vec,
-                                       int tpr, int groups, int block_rows,
-                                       int two_pass, int rsqrt, int accum,
-                                       void* stream) {
-  if (tpr < 32 || tpr % 32 || groups < 1 || tpr * groups > 1024 ||
-      block_rows < 1) {
+                                       float eps, int dtype, int wdtype,
+                                       int vec, int nv, int tpr, int groups,
+                                       int block_rows, int two_pass,
+                                       int rsqrt, int accum, void* stream) {
+  if (tpr < 32 || tpr % 32 || groups < 1 || groups > kMaxGroups ||
+      tpr * groups > 1024 || block_rows < 1) {
     return static_cast<int>(cudaErrorInvalidConfiguration);
   }
-  const Args a{x, res, static_cast<const float*>(w), y, res_out,
-               static_cast<float*>(sumsq), rows, d, eps, tpr, groups,
-               block_rows, static_cast<cudaStream_t>(stream)};
-  if (dtype == repro::kBFloat16) {
-    return vec == 8 ? dispatch<__nv_bfloat16, 8>(a, two_pass, rsqrt, accum)
-                    : dispatch<__nv_bfloat16, 1>(a, two_pass, rsqrt, accum);
+  const Args a{x, res, w, y, res_out, static_cast<float*>(sumsq), rows, d,
+               eps, tpr, groups, block_rows,
+               static_cast<cudaStream_t>(stream)};
+  if (dtype == repro::kBFloat16 && wdtype == repro::kBFloat16) {
+    return dispatch_vec<__nv_bfloat16, __nv_bfloat16>(a, vec, nv, two_pass,
+                                                      rsqrt, accum);
   }
-  if (dtype == repro::kFloat32) {
-    return vec == 4 ? dispatch<float, 4>(a, two_pass, rsqrt, accum)
-                    : dispatch<float, 1>(a, two_pass, rsqrt, accum);
+  if (dtype == repro::kBFloat16 && wdtype == repro::kFloat32) {
+    return dispatch_vec<__nv_bfloat16, float>(a, vec, nv, two_pass, rsqrt,
+                                              accum);
+  }
+  if (dtype == repro::kFloat32 && wdtype == repro::kFloat32) {
+    return dispatch_vec<float, float>(a, vec, nv, two_pass, rsqrt, accum);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

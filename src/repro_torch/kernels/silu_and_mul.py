@@ -10,13 +10,16 @@ copies gate and up out first (two more launches of PyTorch's copy kernel
 and a round trip of x, as the JAX package slices outside its
 ``pallas_call``); ``compute_fp32=False`` rounds every operation to the
 input dtype; ``use_reciprocal`` multiplies by ``__frcp_rn``;
-``fast_exp`` takes ``exp2f``. A block is ``block_cols`` threads, each on
-one 16-byte vector of a row at a time, and takes one row while the grid
-fits the card in one wave (more rows a block read slower), else as few
-rows as keep it to that wave, at most ``block_rows``. At every suite
-shape that is one row a block, below the knob's lowest value, 8, so
-``block_rows`` changes nothing there; ``launch_key`` tells the evaluator
-so.
+``fast_exp`` takes ``exp2f``.
+
+Two knobs set the launch (``launch_shape``): ``block_cols`` is the threads
+of a block, ``block_rows`` the rows of a thread's step (1-16, the port's
+range for JAX's tile height): a thread sends out the gate and up loads of its
+16-byte column of all those rows before any arithmetic. Beside the column
+blocks the grid holds as many step blocks as the card's thread limits hold
+at once, each walking steps a grid apart; the launcher takes that count
+from ``launch_shape``. The baseline takes one row a step and 256 threads a
+block: the textbook elementwise launch.
 
 A CPU tensor takes ``plain``, the genome's arithmetic in PyTorch; a CUDA
 tensor launches the kernel or raises.
@@ -30,20 +33,22 @@ import math
 import numpy as np
 import torch
 
-from repro_torch.device import MAX_THREADS, resident_blocks
+from repro_torch.device import (MAX_BLOCKS_PER_SM, MAX_THREADS_PER_SM,
+                                SMS)
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels.registry import (KernelSpace, Knob, TestCase,
                                           register_kernel_space)
 
 F32 = torch.float32
 LOG2E = 1.4426950408889634
+STEP_ROWS = (1, 2, 4, 8, 16)      # the kernel's instantiations
 
 
 @dataclasses.dataclass(frozen=True)
 class SiluMulVariant:
     """Genome of silu_and_mul (the space the agents search)."""
     name: str = "baseline"
-    block_rows: int = 16
+    block_rows: int = 1
     block_cols: int = 256
     compute_fp32: bool = True
     use_reciprocal: bool = False
@@ -60,7 +65,7 @@ class SiluMulVariant:
 # the paper's baseline: library math and materialised gate/up copies
 BASELINE = SiluMulVariant()
 OPTIMIZED = SiluMulVariant(
-    name="astra_opt", block_rows=32, block_cols=256,
+    name="astra_opt", block_rows=1, block_cols=128,
     compute_fp32=True, use_reciprocal=False, fast_exp=False, fused_split=True,
 )
 
@@ -81,19 +86,39 @@ def plain(variant: SiluMulVariant, x):
     return out.to(x.dtype)
 
 
+def block_limit(vec: int, block_rows: int) -> int:
+    """Threads a block may have: a step's raw 16-byte loads take 8
+    registers a row, held to 64 a thread at 1,024 threads, 128 at 512 and
+    255 at 256 (``csrc``: ``max_threads``)."""
+    if vec == 1 or block_rows <= 4:
+        return 1024
+    return 512 if block_rows == 8 else 256
+
+
 def launch_shape(variant: SiluMulVariant, rows: int, d: int,
-                 vec: int) -> tuple[int, int, int]:
-    """(threads per block, rows per block, column blocks): a thread per
-    16-byte vector of a row, ``block_cols`` threads a block, and one row a
-    block while the grid fits the card in one wave, else as few rows as
-    keep it to that wave, at most ``block_rows`` (and at most 65,535 row
-    blocks)."""
-    threads = variant.block_cols
-    col_blocks = -(-d // vec // threads)
-    wave = resident_blocks(min(threads, MAX_THREADS))
-    per_block = max(1, min(variant.block_rows, -(-rows * col_blocks // wave)),
-                    -(-rows // 65535))
-    return threads, per_block, col_blocks
+                 vec: int) -> tuple[int, int, int, int]:
+    """(threads a block, rows a step, column blocks, step blocks): a thread
+    a 16-byte column, and beside the column blocks as many step blocks as
+    the card's thread and block limits hold at once, at most one a step.
+    Where a thread's registers hold fewer blocks on an SM, the rest run as
+    a second wave; the launch is correct for any count."""
+    threads, br = variant.block_cols, variant.block_rows
+    col_blocks = -(-(d // vec) // threads)      # vec divides d
+    per_sm = max(1, min(MAX_BLOCKS_PER_SM, MAX_THREADS_PER_SM // threads))
+    return (threads, br, col_blocks,
+            max(1, min(-(-rows // br), SMS * per_sm // col_blocks)))
+
+
+def why_not(variant: SiluMulVariant, vec: int) -> str | None:
+    """Why the genome cannot launch, or None."""
+    if variant.block_rows not in STEP_ROWS:
+        return f"block_rows {variant.block_rows} is not one of {STEP_ROWS}"
+    limit = block_limit(vec, variant.block_rows)
+    if not 32 <= variant.block_cols <= limit or variant.block_cols % 32:
+        return (f"block_cols {variant.block_cols} is the threads of a block: "
+                f"whole warps, at most {limit} at {variant.block_rows} rows "
+                f"a step")
+    return None
 
 
 def launch_key(variant: SiluMulVariant, *, rows: int, d: int, dtype):
@@ -128,14 +153,14 @@ def silu_and_mul(x: torch.Tensor,
     else:
         gate, up, stride = x2[:, :d].contiguous(), x2[:, d:].contiguous(), d
     vec = _build.vector_width(d, gate, up, out)
-    threads, per_block, _ = launch_shape(variant, rows, d, vec)
-    if threads > MAX_THREADS:
-        raise ValueError(f"block_cols {variant.block_cols} is the threads of "
-                         f"a block; the card launches at most {MAX_THREADS}")
+    why = why_not(variant, vec)
+    if why:
+        raise ValueError(f"silu_and_mul genome {variant.describe()}: {why}")
+    threads, br, _, step_blocks = launch_shape(variant, rows, d, vec)
     lib = _build.library()
     code = lib.repro_silu_and_mul(
         gate.data_ptr(), up.data_ptr(), out.data_ptr(), rows, d, stride,
-        _build.dtype_code(x), vec, threads, per_block,
+        _build.dtype_code(x), vec, threads, br, step_blocks,
         int(variant.compute_fp32), int(variant.use_reciprocal),
         int(variant.fast_exp), _build.stream_ptr(x.device))
     _build.check(lib, code, "silu_and_mul")
@@ -152,7 +177,10 @@ def cost(variant: SiluMulVariant, *, rows: int, d: int, dtype):
 
     item = dtype.itemsize
     vec = cm.vector_elems(d, item)
-    threads, per_block, col_blocks = launch_shape(variant, rows, d, vec)
+    why = why_not(variant, vec)
+    if why:
+        raise cm.Infeasible(why)
+    threads, br, col_blocks, step_blocks = launch_shape(variant, rows, d, vec)
     n_el = rows * d
     names = ["mul", "add"]                          # x up, 1 + e
     names += ["exp_fast", "mul"] if variant.fast_exp else ["exp"]
@@ -164,9 +192,11 @@ def cost(variant: SiluMulVariant, *, rows: int, d: int, dtype):
     alu, sfu = cm.ops(*names, n=n_el)
     main = cm.Cost(
         dram_bytes=3 * n_el * item, alu_ops=alu, sfu_ops=sfu,
-        blocks=math.ceil(rows / per_block) * col_blocks,
-        threads=threads,
-        waste_bytes=cm.sector_waste(rows, d * item, 3))
+        blocks=col_blocks * step_blocks, threads=threads,
+        regs=65536 // block_limit(vec, br),
+        waste_bytes=cm.sector_waste(rows, d * item, 3),
+        # a thread's steps follow one another, each a load and a store
+        round_trips=math.ceil(-(-rows // br) / step_blocks))
     if variant.fused_split:
         main.validate()
         return main
@@ -217,10 +247,11 @@ def _space() -> KernelSpace:
                  target=True,
                  note="index gate/up in place; kills the two copies "
                       "(a round trip of x and two launches)"),
-            Knob("block_rows", "pow2", 8, 1024, attacks=("overhead",),
-                 note="most rows a block takes"),
-            Knob("block_cols", "pow2", 128, 2048, attacks=("overhead",),
-                 note="threads a block, one 16-byte vector each"),
+            Knob("block_rows", "pow2", 1, 16, attacks=("overhead",),
+                 note="rows of a thread's step, their loads all in flight "
+                      "before any arithmetic"),
+            Knob("block_cols", "pow2", 32, 1024, attacks=("overhead",),
+                 note="threads a block, one 16-byte column each"),
             Knob("use_reciprocal", "bool", attacks=("compute",), target=True,
                  note="__frcp_rn and a multiply instead of a divide"),
             Knob("fast_exp", "bool", attacks=("compute",), target=True,

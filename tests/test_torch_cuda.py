@@ -252,6 +252,199 @@ def test_silu_and_mul_genome_matches_plain(dev, genome, dtype, rows, d):
     _close(out, silu_and_mul.plain(genome, x), dtype)
 
 
+# the serve shapes (8 decode rows and a 4,096-row prefill at each width the
+# two served models give rmsnorm and silu) and each kernel's suite shapes
+SERVE_WIDTHS = (896, 2560, 4864, 6912)
+SERVE_SHAPES = [(rows, d) for rows in (8, 4096) for d in SERVE_WIDTHS]
+
+
+def _every_genome(space):
+    """Every genome of ``space``: each value of each knob."""
+    values = []
+    for k in space.knobs:
+        if k.kind == "bool":
+            values.append((False, True))
+        else:
+            values.append(tuple(1 << b for b in range(
+                k.lo.bit_length() - 1, k.hi.bit_length())))
+    names = [k.name for k in space.knobs]
+    return [dataclasses.replace(space.baseline, name="g", **dict(zip(
+                names, vals))) for vals in itertools.product(*values)]
+
+
+def _space_shapes(module):
+    return SERVE_SHAPES + [(s["batch"], s["hidden"])
+                           for s in module.SUITE_SHAPES]
+
+
+def _flags(space, genome):
+    """The genome's bool knobs: what its plain version depends on."""
+    return tuple(getattr(genome, k.name) for k in space.knobs
+                 if k.kind == "bool")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,d", _space_shapes(fused_add_rmsnorm), ids=str)
+def test_every_rmsnorm_genome_matches_plain(dev, rows, d, dtype):
+    """Every genome of the space (flags x rows a block x threads a row)
+    that can launch at this shape, against its plain version; the weight
+    in fp32 at the serve widths (as served), in the input dtype at the
+    suite's (as the suite makes it). A genome that cannot launch raises."""
+    space = registry.get_space("fused_add_rmsnorm")
+    x, r = _randn((rows, d), dtype, dev, 0), _randn((rows, d), dtype, dev, 1)
+    wdtype = torch.float32 if d in SERVE_WIDTHS else dtype
+    w = (_randn((d,), torch.float32, dev, 2) * 0.1 + 1.0).to(wdtype)
+    vec = 16 // x.element_size()
+    plains, ran = {}, 0
+    for g in _every_genome(space):
+        if fused_add_rmsnorm.why_not(g, rows, d, vec, w.element_size()):
+            with pytest.raises(ValueError):
+                fused_add_rmsnorm.fused_add_rmsnorm(x, r, w, 1e-6, g)
+            continue
+        key = _flags(space, g)
+        if key not in plains:
+            plains[key] = fused_add_rmsnorm.plain(g, x, r, w, 1e-6)
+        got = fused_add_rmsnorm.fused_add_rmsnorm(x, r, w, 1e-6, g)
+        for a, b in zip(got, plains[key]):
+            torch.testing.assert_close(a.float(), b.float(), **TOL[dtype])
+        ran += 1
+    assert ran >= 8 * 5           # every flag at every rows a block at least
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,d", _space_shapes(silu_and_mul), ids=str)
+def test_every_silu_genome_matches_plain(dev, rows, d, dtype):
+    """Every genome of the space (flags x rows a step x threads a block)
+    that can launch, against its plain version; the others raise."""
+    space = registry.get_space("silu_and_mul")
+    x = _randn((rows, 2 * d), dtype, dev, 3, scale=3.0)
+    vec = 16 // x.element_size()
+    plains, ran = {}, 0
+    for g in _every_genome(space):
+        if silu_and_mul.why_not(g, vec):
+            with pytest.raises(ValueError):
+                silu_and_mul.silu_and_mul(x, g)
+            continue
+        key = _flags(space, g)
+        if key not in plains:
+            plains[key] = silu_and_mul.plain(g, x).float()
+        torch.testing.assert_close(silu_and_mul.silu_and_mul(x, g).float(),
+                                   plains[key], **TOL[dtype])
+        ran += 1
+    assert ran >= 16 * 5
+
+
+def _kernels_launched(fn) -> int:
+    """CUDA kernels the profiler sees ``fn`` launch."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and "memcpy" not in e.name.lower()
+               and "memset" not in e.name.lower())
+
+
+@pytest.mark.parametrize("genome", [fused_add_rmsnorm.OPTIMIZED,
+                                    fused_add_rmsnorm.BASELINE],
+                         ids=lambda g: g.name)
+def test_rmsnorm_with_a_bf16_weight_launches_only_what_it_counts(dev,
+                                                                 genome):
+    """A bf16 weight is read as it is stored: the counter equals the
+    kernels the card ran (no cast kernel), and (y, r') equal those of its
+    fp32 widening bit for bit."""
+    x = _randn((33, 5120), torch.bfloat16, dev, 0)
+    r = _randn((33, 5120), torch.bfloat16, dev, 1)
+    w = (_randn((5120,), torch.float32, dev, 2) * 0.1 + 1.0).to(
+        torch.bfloat16)
+    fused_add_rmsnorm.fused_add_rmsnorm(x, r, w, 1e-6, genome)   # warm
+    n0 = fused_add_rmsnorm.fused_add_rmsnorm.launches
+    out = []
+    seen = _kernels_launched(lambda: out.append(
+        fused_add_rmsnorm.fused_add_rmsnorm(x, r, w, 1e-6, genome)))
+    assert seen == fused_add_rmsnorm.fused_add_rmsnorm.launches - n0
+    assert seen == (2 if genome.two_pass else 1)
+    y, r_new = out[0]
+    y32, r32 = fused_add_rmsnorm.fused_add_rmsnorm(x, r, w.float(), 1e-6,
+                                                   genome)
+    assert torch.equal(y, y32) and torch.equal(r_new, r32)
+
+
+CHAIN = 50
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("genome", [fused_add_rmsnorm.OPTIMIZED,
+                                    fused_add_rmsnorm.BASELINE,
+                                    dataclasses.replace(
+                                        fused_add_rmsnorm.OPTIMIZED,
+                                        name="stacked", block_rows=16,
+                                        row_threads=256)],
+                         ids=lambda g: g.name)
+def test_a_dependent_rmsnorm_chain_waits_for_its_inputs(dev, genome, dtype):
+    """50 calls, each on the previous call's y and r', behind a PyTorch op
+    that writes the first x and r: eagerly, and replayed from a CUDA graph
+    after the source changes. Every call equals the plain version of its
+    own inputs (the previous call's outputs, or the source), so a call
+    that read a stale or half-written input fails. ("stacked": row groups
+    that walk several rows, the next one queued by cp.async.)"""
+    rows, d = 256, 2560
+    src = _randn((2, rows, d), dtype, dev, 0)
+    w = _randn((d,), torch.float32, dev, 2) * 0.1 + 1.0
+    x, r = torch.empty_like(src[0]), torch.empty_like(src[0])
+
+    def run():
+        torch.mul(src[0], 1.0, out=x)
+        torch.mul(src[1], 1.0, out=r)
+        steps = [(x, r)]
+        for _ in range(CHAIN):
+            steps.append(fused_add_rmsnorm.fused_add_rmsnorm(
+                *steps[-1], w, 1e-6, genome))
+        return steps
+
+    def check(steps):
+        torch.cuda.synchronize()
+        inputs = [(src[0], src[1])] + steps[1:-1]
+        for (a, b), got in zip(inputs, steps[1:]):
+            want = fused_add_rmsnorm.plain(genome, a, b, w, 1e-6)
+            for g, e in zip(got, want):
+                torch.testing.assert_close(g.float(), e.float(), **TOL[dtype])
+
+    check(run())
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()                                          # warm the pool
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        steps = run()
+    for seed in (5, 6):
+        src.copy_(_randn((2, rows, d), dtype, dev, seed))
+        graph.replay()
+        check(steps)
+
+
+def test_launch_knobs_that_do_not_fit_raise_on_the_card(dev):
+    """One warp a row cannot hold a row of 14,336 in registers, and a
+    step of 16 rows holds a silu block to 256 threads: both raise before
+    anything launches."""
+    x = _randn((4, 14336), torch.float32, dev, 0)
+    g = dataclasses.replace(fused_add_rmsnorm.OPTIMIZED, row_threads=32)
+    n0 = fused_add_rmsnorm.fused_add_rmsnorm.launches
+    with pytest.raises(ValueError, match="registers"):
+        fused_add_rmsnorm.fused_add_rmsnorm(x, x, x[0], 1e-6, g)
+    with pytest.raises(ValueError, match="float32 or"):
+        fused_add_rmsnorm.fused_add_rmsnorm(x, x, x[0].half())
+    assert fused_add_rmsnorm.fused_add_rmsnorm.launches == n0
+    g = dataclasses.replace(silu_and_mul.OPTIMIZED, block_rows=16,
+                            block_cols=512)
+    with pytest.raises(ValueError, match="256"):
+        silu_and_mul.silu_and_mul(x, g)
+
+
 def flash_case(b, hq, hkv, dh, s, dtype, dev, seed=0, lens=None):
     """q, k, v and ragged kv_len with 0, 1 and s (or ``lens``)."""
     rng = np.random.default_rng(seed)

@@ -216,9 +216,13 @@ def test_paged_decode_matches_pallas(hq, hkv, dtype):
 # --------------------------------------------------------------------------
 
 def jax_genome(module, variant):
-    """The JAX package's genome with the same field values."""
+    """The JAX package's genome with the same field values (the port's
+    launch knobs that JAX has no field for, such as rmsnorm's
+    ``row_threads``, set only the launch)."""
     cls = getattr(module, type(variant).__name__)
-    return cls(**dataclasses.asdict(variant))
+    names = {f.name for f in dataclasses.fields(cls)}
+    return cls(**{k: v for k, v in dataclasses.asdict(variant).items()
+                  if k in names})
 
 
 MERGE_GENOMES = {
@@ -308,6 +312,70 @@ def test_silu_and_mul_genome_matches_pallas(genome, dtype):
     close(jit(jsilu.silu_and_mul, variant=jax_genome(jsilu, variant),
               interpret=True)(xj),
           silu_and_mul.silu_and_mul(xt, variant), dtype)
+
+
+def _launch_values(space_name):
+    """(knob, value) for each legal value of each launch (pow2) knob."""
+    space = registry.get_space(space_name)
+    return [(k.name, 1 << b) for k in space.knobs if k.kind == "pow2"
+            for b in range(k.lo.bit_length() - 1, k.hi.bit_length())]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_rmsnorm_launch_knob_genome_matches_pallas(dtype):
+    """The shipped genome at each value of each launch knob against the
+    Pallas kernel (interpret mode) of the JAX genome with the same flags.
+    A launch knob sets no arithmetic, so on the CPU every value gives the
+    shipped genome's output; each launch runs on the card
+    (test_torch_cuda.py: test_every_rmsnorm_genome_matches_plain)."""
+    rng = np.random.default_rng(11)
+    x, r = rng.standard_normal((2, 33, 256))
+    w = 1.0 + 0.1 * rng.standard_normal(256)
+    (xj, xt), (rj, rt), (wj, wt) = both(x, dtype), both(r, dtype), \
+        both(w, "float32")
+    yj, nj = jit(jrms.fused_add_rmsnorm, eps=1e-6,
+                 variant=jax_genome(jrms, fused_add_rmsnorm.OPTIMIZED),
+                 interpret=True)(xj, rj, wj)
+    for knob, value in _launch_values("fused_add_rmsnorm"):
+        variant = dataclasses.replace(fused_add_rmsnorm.OPTIMIZED,
+                                      **{knob: value})
+        yt, nt = fused_add_rmsnorm.fused_add_rmsnorm(xt, rt, wt, 1e-6,
+                                                     variant)
+        close(yj, yt, dtype)
+        close(nj, nt, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_silu_launch_knob_genome_matches_pallas(dtype):
+    """The shipped genome at each value of each launch knob against the
+    Pallas kernel (interpret mode) of the JAX genome with the same flags;
+    each launch runs on the card (test_every_silu_genome_matches_plain)."""
+    x = np.random.default_rng(12).standard_normal((17, 2 * 384)) * 3
+    xj, xt = both(x, dtype)
+    want = jit(jsilu.silu_and_mul,
+               variant=jax_genome(jsilu, silu_and_mul.OPTIMIZED),
+               interpret=True)(xj)
+    for knob, value in _launch_values("silu_and_mul"):
+        variant = dataclasses.replace(silu_and_mul.OPTIMIZED,
+                                      **{knob: value})
+        close(want, silu_and_mul.silu_and_mul(xt, variant), dtype)
+
+
+@pytest.mark.parametrize("genome", ["optimized", "baseline"])
+def test_rmsnorm_bf16_weight_equals_its_fp32_widening(genome):
+    """A bf16 weight widens exactly: (y, r') are those of the fp32 weight
+    with the same values, bit for bit (the kernel reads the weight in its
+    own dtype, the wrapper casts nothing)."""
+    variant = RMS_GENOMES[genome][0]
+    rng = np.random.default_rng(13)
+    x, r = (torch.tensor(a, dtype=torch.bfloat16)
+            for a in rng.standard_normal((2, 9, 320)))
+    w = torch.tensor(1.0 + 0.1 * rng.standard_normal(320),
+                     dtype=torch.bfloat16)
+    got = fused_add_rmsnorm.fused_add_rmsnorm(x, r, w, 1e-6, variant)
+    want = fused_add_rmsnorm.fused_add_rmsnorm(x, r, w.float(), 1e-6,
+                                               variant)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 FLASH_GENOMES = {

@@ -77,16 +77,57 @@ def knob_tuple(space):
             for k in space.knobs]
 
 
+# the port's launch knobs: (lo, hi) where the JAX package has the knob with
+# its TPU range, or where it has none (rmsnorm's threads a row)
+PORT_LAUNCH_KNOBS = {
+    "fused_add_rmsnorm": {"block_rows": (1, 16), "row_threads": (32, 1024)},
+    "silu_and_mul": {"block_rows": (1, 16), "block_cols": (32, 1024)},
+}
+
+
+def jax_knobs(kernel):
+    """The port's space with the JAX package's knob definitions and its
+    baseline's values of them (what the two planners are held to one
+    another on)."""
+    jspace = jregistry.get_space(kernel)
+    ref = {k.name: k for k in jspace.knobs}
+    space = get_space(kernel)
+    return dataclasses.replace(
+        space,
+        baseline=dataclasses.replace(space.baseline, **{
+            n: getattr(jspace.baseline, n) for n in ref}),
+        knobs=tuple(Knob(**{f.name: getattr(ref[k.name], f.name)
+                            for f in dataclasses.fields(Knob)})
+                    for k in space.knobs if k.name in ref))
+
+
 @pytest.mark.parametrize("kernel", PAPER + ("paged_flash_decode",))
 def test_registry_matches_the_jax_space(kernel):
+    """The JAX package's knobs, flags, genomes and suite; the launch knobs
+    of rmsnorm and silu take the port's ranges (a block's rows and
+    threads on the card) and their values in the port's genomes."""
     assert registry.registered_kernels() == tuple(sorted(
         ("flash_decode", "paged_flash_decode") + PAPER))
     mine, ref = get_space(kernel), jregistry.get_space(kernel)
-    assert knob_tuple(mine) == knob_tuple(ref)
-    assert dataclasses.asdict(mine.baseline) == \
-        dataclasses.asdict(ref.baseline)
-    assert dataclasses.asdict(mine.shipped) == \
-        dataclasses.asdict(ref.shipped)
+    launch = PORT_LAUNCH_KNOBS.get(kernel, {})
+    theirs = {k[0]: k for k in knob_tuple(ref)}
+    for k in knob_tuple(mine):
+        if k[0] in launch:
+            assert (k[1], k[2], k[3]) == ("pow2",) + launch[k[0]]
+        else:
+            assert k == theirs.pop(k[0])
+    assert set(theirs) <= set(launch)
+    for genome in ("baseline", "shipped"):
+        a = dataclasses.asdict(getattr(mine, genome))
+        b = dataclasses.asdict(getattr(ref, genome))
+        for name, (lo, hi) in launch.items():
+            assert lo <= a.pop(name) <= hi
+            b.pop(name, None)
+        assert a == b
+    if launch:      # the textbook launch: one row a block, or a step, where
+        # JAX's baseline takes a 16-row tile
+        assert mine.baseline.block_rows == 1
+        assert ref.baseline.block_rows == 16
     assert mine.suite_shapes == ref.suite_shapes
     assert type(mine.baseline).__name__ == type(ref.baseline).__name__
 
@@ -348,7 +389,9 @@ def _policy_case(case, space, pkg):
 @pytest.mark.parametrize("case", POLICY_CASES)
 @pytest.mark.parametrize("kernel", PAPER)
 def test_policy_makes_the_jax_moves(kernel, case):
-    spaces = (get_space(kernel), jregistry.get_space(kernel))
+    """On the JAX package's knob definitions (the port's launch knobs
+    take other ranges, and rmsnorm one more knob: test_registry_...)."""
+    spaces = (jax_knobs(kernel), jregistry.get_space(kernel))
     moves = []
     for pkg, backend in ((0, policy.PolicyBackend()),
                          (1, jpolicy.PolicyBackend())):
@@ -644,40 +687,129 @@ def test_evaluate_many_is_parallel_deterministic_and_dedups():
 @pytest.mark.parametrize("module", [fused_add_rmsnorm, silu_and_mul],
                          ids=lambda m: m.__name__.split(".")[-1])
 def test_block_rows_launches_nothing_new_at_the_suite_shapes(module):
-    """The wrappers clamp rows a block to what keeps 132 SMs busy, below
-    the knob's lowest value at every suite shape, so every legal
-    ``block_rows`` has one launch key there; a bool flag changes it."""
+    """No launch knob is inert: each legal value of each of them (rows and
+    threads of a block) launches other code than every other value at
+    some suite shape, in some dtype; a bool flag changes the launch too."""
     space = get_space(module.__name__.split(".")[-1])
-    knob = next(k for k in space.knobs if k.name == "block_rows")
+    infos = [module.make_inputs(shape, dtype=dtype).shape_info
+             for shape in module.SUITE_SHAPES
+             for dtype in (torch.float32, torch.bfloat16)]
+    knobs = [k for k in space.knobs if k.kind == "pow2"]
+    assert {k.name for k in knobs} == set(
+        PORT_LAUNCH_KNOBS[space.name])
+    for knob in knobs:
+        values = [1 << b for b in range(knob.lo.bit_length() - 1,
+                                        knob.hi.bit_length())]
+        keys = [tuple(space.launch_key(dataclasses.replace(
+                    space.shipped, **{knob.name: v}), **info)
+                      for info in infos) for v in values]
+        assert len(set(keys)) == len(values), knob.name
+        feasible = []
+        for v in values:
+            g = dataclasses.replace(space.shipped, **{knob.name: v})
+            n = 0
+            for info in infos:
+                try:
+                    space.cost(g, **info)
+                    n += 1
+                except costmodel.Infeasible:
+                    pass
+            feasible.append(n)
+        assert max(feasible) == len(infos)   # some value runs everywhere
     flag = next(k for k in space.knobs if k.kind == "bool")
-    for shape in module.SUITE_SHAPES:
-        for dtype in (torch.float32, torch.bfloat16):
-            info = module.make_inputs(shape, dtype=dtype).shape_info
-            keys = {space.launch_key(dataclasses.replace(
-                        space.baseline, block_rows=1 << b), **info)
-                    for b in range(knob.lo.bit_length() - 1,
-                                   knob.hi.bit_length())}
-            assert len(keys) == 1
-            moved = dataclasses.replace(
-                space.baseline,
-                **{flag.name: not getattr(space.baseline, flag.name)})
-            assert space.launch_key(moved, **info) not in keys
+    moved = dataclasses.replace(
+        space.shipped, **{flag.name: not getattr(space.shipped, flag.name)})
+    assert space.launch_key(moved, **infos[0]) != \
+        space.launch_key(space.shipped, **infos[0])
 
 
 def test_a_move_that_launches_the_same_code_is_a_cache_hit():
+    """accum_fp32 launches the same kernel for fp32 inputs (the add is in
+    fp32 either way), so moving it on an fp32 suite is a cache hit."""
     space = reduced("fused_add_rmsnorm")
     tests = suite_tests(space, cpu_tester(dtypes=(torch.float32,)))
     ev, cache = TieredEvaluator(), EvalCache()
     kw = dict(testing=cpu_tester(), profiling=ProfilingAgent(), cache=cache)
     first = ev.evaluate(space, fused_add_rmsnorm.OPTIMIZED, tests, **kw)
     same = ev.evaluate(space, dataclasses.replace(
-        fused_add_rmsnorm.OPTIMIZED, name="moved", block_rows=64), tests, **kw)
+        fused_add_rmsnorm.OPTIMIZED, name="moved", accum_fp32=False), tests,
+        **kw)
     assert not first.cached and same.cached
     assert same.profile.geomean_latency_us == \
         first.profile.geomean_latency_us
     other = ev.evaluate(space, fused_add_rmsnorm.BASELINE, tests, **kw)
     assert not other.cached
     assert ev.stats.profile_runs == 2 and cache.max_evals_per_genome() == 1
+
+
+SERVE_WIDTHS = (896, 2560, 4864, 6912)
+
+
+def _shapes(module):
+    """(rows, d) of the suite and of the serve paths (decode, prefill)."""
+    return [(s["batch"], s["hidden"]) for s in module.SUITE_SHAPES] + [
+        (rows, d) for rows in (8, 4096) for d in SERVE_WIDTHS]
+
+
+def test_rmsnorm_launch_shape_holds_the_row_in_the_block():
+    """Every value of the launch knobs at every suite and serve shape: a
+    row gets whole warps, at most ``row_threads`` of them, holding all its
+    vectors at a power-of-two count a thread; a block stays within its
+    thread limit and 16 row groups; the cost screens exactly the genomes
+    the wrapper refuses."""
+    from repro_torch.kernels.fused_add_rmsnorm import (NV_MAX, block_limit,
+                                                       launch_shape, why_not)
+    n = 0
+    for rt in (32, 64, 128, 256, 512, 1024):
+        for br in (1, 2, 4, 8, 16):
+            for two in (False, True):
+                g = dataclasses.replace(fused_add_rmsnorm.OPTIMIZED,
+                                        row_threads=rt, block_rows=br,
+                                        two_pass=two)
+                for rows, d in _shapes(fused_add_rmsnorm):
+                    for dtype in (torch.float32, torch.bfloat16):
+                        item = dtype.itemsize
+                        vec = costmodel.vector_elems(d, item)
+                        tpr, groups, per_block, nv = launch_shape(
+                            g, rows, d, vec, item)
+                        assert tpr % 32 == 0 and tpr <= rt
+                        assert 1 <= groups <= min(16, per_block)
+                        assert per_block == min(br, rows)
+                        why = why_not(g, rows, d, vec, item)
+                        try:
+                            fused_add_rmsnorm.cost(g, rows=rows, d=d,
+                                                   dtype=dtype)
+                            assert why is None
+                        except costmodel.Infeasible:
+                            assert why is not None
+                        if two or why:
+                            continue
+                        n += 1
+                        assert nv & (nv - 1) == 0 and nv <= NV_MAX
+                        assert nv * tpr * vec >= d > nv * (tpr - 32) * vec
+                        assert tpr * groups <= block_limit(vec, nv, item)
+    assert n > 300
+
+
+def test_silu_launch_shape_is_one_wave_of_steps():
+    """A block of ``block_cols`` threads, a step of ``block_rows`` rows,
+    the column blocks that cover a row and at most one wave of blocks (or
+    one step block); a step of 16 rows holds a block to 256 threads."""
+    from repro_torch.kernels.silu_and_mul import (block_limit, launch_shape,
+                                                  why_not)
+    for br in (1, 2, 4, 8, 16):
+        for bc in (32, 64, 128, 256, 512, 1024):
+            g = dataclasses.replace(silu_and_mul.OPTIMIZED, block_rows=br,
+                                    block_cols=bc)
+            for rows, d in _shapes(silu_and_mul):
+                threads, step, cols, steps = launch_shape(g, rows, d, 8)
+                assert (threads, step) == (bc, br)
+                assert (cols - 1) * bc < d // 8 <= cols * bc
+                assert 1 <= steps <= -(-rows // br)
+                assert steps == 1 or cols * steps <= \
+                    costmodel.SMS * 2048 // bc
+            assert (why_not(g, 8) is None) == (bc <= block_limit(8, br))
+    assert block_limit(8, 16) == 256 and block_limit(1, 16) == 1024
 
 
 def test_a_suite_on_the_card_is_evaluated_one_genome_at_a_time(
@@ -829,6 +961,31 @@ def test_cpu_search_never_touches_the_kernel_library(monkeypatch):
     assert ops.launch_counts() == before
 
 
+def test_single_agent_rejects_a_genome_that_cannot_launch_unrun(
+        monkeypatch):
+    """From a genome of 16 rows a step, the single agent's checklist
+    doubles silu's threads a block to 512, which a block cannot hold: that
+    round fails without validation (on the card the wrapper would raise),
+    as the loop's evaluator screens it, and the agent ships its last
+    accepted genome."""
+    validated = []
+    real = TestingAgent.validate
+
+    def spy(self, space, variant, tests, **kw):
+        validated.append(variant)
+        return real(self, space, variant, tests, **kw)
+
+    monkeypatch.setattr(TestingAgent, "validate", spy)
+    space = get_space("silu_and_mul")
+    space = dataclasses.replace(space, baseline=dataclasses.replace(
+        space.baseline, block_rows=16))
+    log = optimize_single_agent(space, rounds=5, device="cpu")
+    last = log.entries[-1]
+    assert "block_cols=512" in last.rationale and not last.correct
+    assert all(v.block_cols <= 256 for v in validated)
+    assert log.final_variant.block_cols == 256
+
+
 def test_entry_points_need_a_gpu_unless_told_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError):
@@ -853,12 +1010,17 @@ def test_entry_points_need_a_gpu_unless_told_cpu(monkeypatch):
 # ------------------------------------------------------ the H100 model
 
 def test_cost_model_is_calibrated_on_the_decode_rmsnorm():
-    """The shipped rmsnorm at 8 x 896 bf16 took 2.01 us on the H100, one
-    block of 128 threads per row."""
+    """The shipped rmsnorm at 8 x 896 bf16 took 1.70 us on the H100 in a
+    graph (one block of 128 threads a row, one round trip), the empty
+    kernel 0.99 us: the launch floor, one round trip and the bytes."""
     c = fused_add_rmsnorm.cost(fused_add_rmsnorm.OPTIMIZED, rows=8, d=896,
                                dtype=torch.bfloat16)
-    assert c.latency_s * 1e6 == pytest.approx(2.01, abs=0.01)
-    assert fused_add_rmsnorm.launch_shape(16, 8, 896, 8) == (128, 1, 1)
+    assert c.latency_s * 1e6 == pytest.approx(1.70, abs=0.01)
+    assert costmodel.LAUNCH_S == pytest.approx(0.99e-6)
+    assert c.round_trips == 1 and c.overhead_s == pytest.approx(
+        costmodel.LAUNCH_S + costmodel.ROUND_TRIP_S)
+    assert fused_add_rmsnorm.launch_shape(
+        fused_add_rmsnorm.OPTIMIZED, 8, 896, 8, 2) == (128, 1, 1, 1)
     assert c.blocks == 8 and c.threads == 128
 
 
@@ -904,6 +1066,9 @@ def test_log_and_planner_surface(cpu_logs):
         policy.LLMBackend()
     space = get_space("silu_and_mul")
     moved = CodingAgent().apply(space, space.baseline,
+                                agents.Suggestion("block_rows", 3, "x"))
+    assert moved.block_rows == 4            # clamped to a power of two
+    moved = CodingAgent().apply(space, space.baseline,
                                 agents.Suggestion("block_rows", 100, "x"))
-    assert moved.block_rows == 128          # clamped to a power of two
+    assert moved.block_rows == 16           # ... and to the knob's range
     assert np.isfinite(log.best().perf.geomean_latency_us)
