@@ -44,14 +44,30 @@ Phases, each of which fails the run (non-zero exit) on any error:
    16 greedy requests of 32 tokens each: qwen2-0.5b from the paged pool,
    once with the shipped genomes and once with the reintegrated ones;
    then h2o-danube-1.8b (sliding window 4096) from the contiguous ring
-   with the reintegrated ones, four of its prompts crossing the window.
-   Every request must finish with 32 tokens, ``readbacks == steps``, and
-   each kernel's launch count must be what the path and the installed
-   genome imply.
+   with the reintegrated ones, four of its prompts crossing the window;
+   then qwen2-0.5b again with the reintegrated genomes on an
+   oversubscribed pool (48 pages of 16 against the 256 of full
+   subscription, swap preemption). Every engine captures its decode step
+   as a CUDA graph when it is built and replays it each step (its capture
+   time, replays and the mean wall time of a decode step are printed).
+   Every request must finish with 32 tokens, ``readbacks == steps ==
+   graph_replays``, and each kernel's launch count must be what the path
+   and the installed genome imply. The oversubscribed serve must preempt
+   at least once, keep the page pool's invariants, release every page,
+   and give the fully subscribed reintegrated serve's streams token for
+   token.
 5. Reference: on the reduced qwen2 and h2o-danube configs in fp32, the
    port's logits (the h2o ones past the window and after the ring wraps)
    and greedy streams on the card agree with its plain versions on the
    CPU.
+
+``--time-serve SRC ARCH`` runs no phase: it serves phase 4's fully
+subscribed workload of ARCH (qwen2-0.5b or h2o-danube-1.8b) with the
+package under SRC (this tree's ``src``, or a checkout of the parent
+commit), times every engine step on the host, and prints one JSON line:
+tok_s, ttft, steps, and the mean wall time of a step that admits nothing
+(its decode dispatch and the previous step's readback), so two commits'
+engines compare in one call.
 
 The line before the last holds the card's name and power limit; the line
 before that one JSON object with one row per kernel; the last line is
@@ -89,6 +105,8 @@ SERVE = dict(arch="qwen2-0.5b", slots=8, max_seq=512, page_size=16,
 # two prompts just under the window (decoding crosses it), two past it
 SERVE_H2O = dict(SERVE, arch="h2o-danube-1.8b", max_seq=8192,
                  max_prompt=2048, crossing=2)
+# 48 pages of 16 rows against 8 slots x 512 rows (256 pages): swap
+SERVE_OVER = dict(SERVE, num_pages=48, preemption="swap")
 
 
 def log(*args):
@@ -818,7 +836,8 @@ def phase_tune() -> tuple[bool, dict, dict]:
 
 def phase_serve(label: str, s: dict) -> tuple[bool, dict]:
     """Serve ``s["requests"]`` greedy requests on ``s["arch"]`` at full
-    width; returns (ok, launch counts of the run)."""
+    width (on an oversubscribed pool where ``s`` names ``num_pages``);
+    returns (ok, launch counts of the run, the streams)."""
     from repro_torch import configs
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import measure, prompts_for
@@ -836,13 +855,15 @@ def phase_serve(label: str, s: dict) -> tuple[bool, dict]:
                           s["max_prompt"], s["seed"], crossing=s["crossing"])
     m, outs = measure(params, cfg, prompts, max_new=s["max_new"],
                       slots=s["slots"], max_seq=s["max_seq"],
-                      page_size=s["page_size"], device="cuda")
+                      page_size=s["page_size"], device="cuda",
+                      num_pages=s.get("num_pages"),
+                      preemption=s.get("preemption", "swap"))
     steps, prefills = m["steps"], s["requests"]
     rms = ops.get_variant("fused_add_rmsnorm")
     # decode attention runs on the cache layout's kernel alone
     if m["paged"]:
-        attn, layout = "paged_flash_decode", f"paged pool, page " \
-            f"{s['page_size']}"
+        attn, layout = "paged_flash_decode", f"paged pool of " \
+            f"{m['num_pages']} pages of {s['page_size']}"
     else:
         attn = "flash_decode"
         layout = (f"contiguous ring of {cfg.window} rows a slot, "
@@ -863,7 +884,26 @@ def phase_serve(label: str, s: dict) -> tuple[bool, dict]:
         f"steps={steps} readbacks={m['readbacks']} "
         f"prefill_buckets={m['prefill_buckets']} "
         f"peak_mem_GiB={m['peak_mem_gib']:.2f}")
+    log(f"  captured decode step: capture_s={m['capture_s']:.3f} "
+        f"decode_captures={m['decode_captures']} "
+        f"graph_replays={m['graph_replays']} "
+        f"mean_decode_step_ms={1e3 * m['decode_step_s']:.3f} "
+        f"table_uploads={m['table_uploads']}")
     ok = True
+    if m["graph_replays"] != steps or m["decode_captures"] != 1:
+        log(f"  FAIL graph_replays {m['graph_replays']} != steps {steps} "
+            f"or {m['decode_captures']} captures")
+        ok = False
+    if m["paged"]:
+        log(f"  preemption {m['preemption']}: preemptions="
+            f"{m['preemptions']} pages swapped out={m['swapped_out_pages']}"
+            f" back in={m['swapped_in_pages']} pool_check="
+            f"{'ok' if m['pool_ok'] else m['pool_error']} all pages "
+            f"released={m['pool_released']}")
+        ok &= m["pool_ok"] and m["pool_released"]
+        if s.get("num_pages") and m["preemptions"] < 1:
+            log("  FAIL the oversubscribed pool never preempted")
+            ok = False
     for name, n in m["launches"].items():
         good = n == want[name]
         ok &= good
@@ -878,7 +918,52 @@ def phase_serve(label: str, s: dict) -> tuple[bool, dict]:
             log(f"  FAIL request {o.rid}: {o.finish_reason} "
                 f"{len(o.tokens)} tokens {o.error or ''}")
             ok = False
-    return ok, m["launches"]
+    return ok, m["launches"], [o.tokens for o in outs]
+
+
+def time_serve(arch: str) -> dict:
+    """``--time-serve``: phase 4's fully subscribed serve of ``arch``
+    through the ``Engine`` of the ``repro_torch`` first on ``sys.path``,
+    each ``step()`` timed on the host, after a warm-up wave on an engine
+    of its own. Uses only what the engines of earlier commits have too."""
+    from repro_torch import configs
+    from repro_torch.launch.serve import prompts_for
+    from repro_torch.models import registry
+    from repro_torch.serving import CacheConfig, Engine, Request
+
+    s = {SERVE["arch"]: SERVE, SERVE_H2O["arch"]: SERVE_H2O}[arch]
+    cfg = configs.get(arch)
+    params = registry.init_params(cfg, seed=s["seed"])
+
+    def serve(prompts, max_new):
+        eng = Engine(params, cfg, slots=s["slots"], max_seq=s["max_seq"],
+                     cache_manager=CacheConfig(page_size=s["page_size"]))
+        torch.cuda.synchronize()
+        for rid, p in enumerate(prompts):
+            eng.submit(Request(rid=rid, prompt=p, max_new_tokens=max_new))
+        decode = []
+        t0 = time.perf_counter()
+        while eng.has_work():
+            admitted = eng.scheduler.stats()["sched_admitted"]
+            t = time.perf_counter()
+            if not eng.step():
+                break
+            if eng.scheduler.stats()["sched_admitted"] == admitted:
+                decode.append(time.perf_counter() - t)
+        eng.run()                       # settles the last readback
+        torch.cuda.synchronize()
+        return eng, decode, time.perf_counter() - t0
+
+    serve(prompts_for(cfg, 2, 16, 64, seed=99), 4)
+    prompts = prompts_for(cfg, s["requests"], s["min_prompt"],
+                          s["max_prompt"], s["seed"], crossing=s["crossing"])
+    eng, decode, wall = serve(prompts, s["max_new"])
+    st = eng.stats()
+    return {"arch": arch, "wall_s": wall, "tok_s": st["tokens"] / wall,
+            "ttft_s": st["ttft"], "steps": st["steps"],
+            "readbacks": st["readbacks"], "decode_steps": len(decode),
+            "decode_step_ms": 1e3 * float(np.mean(decode)),
+            "decode_step_ms_median": 1e3 * float(np.median(decode))}
 
 
 def phase_reference() -> bool:
@@ -990,6 +1075,9 @@ def main() -> int:
     ap.add_argument("--parent", help="a checkout of the parent commit: the "
                     "shapes phase times its rmsnorm and silu too")
     ap.add_argument("--time-shapes", metavar="SRC", help=argparse.SUPPRESS)
+    ap.add_argument("--time-serve", nargs=2, metavar=("SRC", "ARCH"),
+                    help="time phase 4's serve of ARCH on the package "
+                    "under SRC, and stop")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; this script runs only "
@@ -998,6 +1086,10 @@ def main() -> int:
     if args.time_shapes:
         sys.path.insert(0, os.path.abspath(args.time_shapes))
         print(json.dumps(time_shapes()))
+        return 0
+    if args.time_serve:
+        sys.path.insert(0, os.path.abspath(args.time_serve[0]))
+        print(json.dumps(time_serve(args.time_serve[1])))
         return 0
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.kernels import _build, ops
@@ -1047,12 +1139,19 @@ def main() -> int:
         "reintegrated; h2o-danube-1.8b with the reintegrated")
     tuned = {n: ops.get_variant(n) for n in results}
     ops.set_variants(**{n: get_space(n).shipped for n in results})
-    ok["serve shipped"], shipped_counts = phase_serve("shipped genomes",
-                                                      SERVE)
+    ok["serve shipped"], shipped_counts, _ = phase_serve(
+        "shipped genomes", SERVE)
     ops.set_variants(**tuned)
-    ok["serve"], serve_counts = phase_serve("reintegrated genomes", SERVE)
-    ok["serve h2o"], h2o_counts = phase_serve("reintegrated genomes",
-                                              SERVE_H2O)
+    ok["serve"], serve_counts, streams = phase_serve("reintegrated genomes",
+                                                     SERVE)
+    ok["serve h2o"], h2o_counts, _ = phase_serve("reintegrated genomes",
+                                                 SERVE_H2O)
+    ok["serve oversubscribed"], over_counts, over_streams = phase_serve(
+        "reintegrated genomes, oversubscribed pool", SERVE_OVER)
+    same = over_streams == streams
+    ok["serve oversubscribed"] &= same
+    log(f"  oversubscribed streams against the fully subscribed serve: "
+        f"{'equal' if same else 'DIFFER'}")
     phase_s["serve"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     log("phase 5: reference on a small input")
@@ -1064,11 +1163,12 @@ def main() -> int:
     log(f"total {time.perf_counter() - t_start:.1f} s")
     for name, row in rows.items():
         row["launches"] = (tune_counts[name] + serve_counts[name]
-                           + h2o_counts[name])
+                           + h2o_counts[name] + over_counts[name])
         row["launches_by_path"] = {"tune": tune_counts[name],
                                    "serve_shipped": shipped_counts[name],
                                    "serve_reintegrated": serve_counts[name],
-                                   "serve_h2o": h2o_counts[name]}
+                                   "serve_h2o": h2o_counts[name],
+                                   "serve_oversubscribed": over_counts[name]}
     rows["merge_attn_states_lse"]["note"] = (
         "not on the serve path (the model inlines its merge); the tune "
         "phase (the agent loop) drives it")

@@ -90,3 +90,13 @@ def reset_launch_counts() -> None:
     """Set every kernel's launch count to 0."""
     for fn in _WRAPPERS.values():
         fn.launches = 0
+
+
+def add_launch_counts(delta: dict) -> None:
+    """Add ``delta`` (kernel name -> launches, possibly negative) to the
+    counts. A CUDA graph records its launches once, at capture, where the
+    wrappers count them though nothing runs: the capturer takes that
+    delta of ``launch_counts()`` off again and adds it back on each
+    replay, so the counts stay the launches the device ran."""
+    for name, n in delta.items():
+        _WRAPPERS[name].launches += n

@@ -13,15 +13,22 @@ An architecture that can page (qwen2-0.5b) is served from the paged pool;
 a sliding-window one (h2o-danube-1.8b) from the contiguous cache, a
 window-row ring per slot, whose decode attention is the ``flash_decode``
 kernel. ``--max-seq`` defaults to 512, or twice the window.
+``--num-pages`` below full subscription (slots * max_seq / page_size)
+oversubscribes the pool; ``--preemption swap|recompute`` says what
+happens to the requests it evicts.
 ``--crossing N`` gives N prompts a length just under the window (decoding
 carries them across it) and N a length past it (prefilled at exact
 length and laid out as the ring).
 
-It prints one JSON line of serving metrics (tok/s, mean TTFT, steps,
-readbacks, kernel launches, and on the card the peak memory and the card's
-name and power limit). ``--profile`` adds, for the measured run, the
-device's busy share of the wall time, each of the port's kernels by name
-with its launches and device time, and the top operators by device time
+It prints one JSON line of serving metrics (tok/s, mean TTFT, the mean
+wall time of a decode step, steps, readbacks, kernel launches,
+preemptions and pages swapped, the decode step's captures and graph
+replays, and on the card the peak memory and the card's name and power
+limit). ``--profile`` adds, for the measured run, the device's busy share
+of the wall time, the host's ``cudaLaunchKernel`` and ``cudaGraphLaunch``
+calls, each of the port's kernels by name with its launches and device
+time as the profiler saw them (kernels inside graph replays included
+where the profiler reports them), and the top operators by device time
 and by host time.
 """
 
@@ -106,16 +113,19 @@ def card() -> str:
 
 
 def measure(params, cfg, prompts, *, max_new: int, slots: int,
-            max_seq: int, page_size: int, device,
+            max_seq: int, page_size: int, device, num_pages=None,
+            preemption: str = "swap",
             profile_rows: int = 0) -> tuple[dict, list]:
     """Warm up on an engine of its own, then serve ``prompts`` once on a
-    fresh engine, with every kernel's launch count set to 0 just before.
+    fresh engine (on the card its decode step is captured when it is
+    built), with every kernel's launch count set to 0 just before.
     Returns (metrics, the ``RequestOutput`` list). ``profile_rows > 0``
     runs the measured wave under ``torch.profiler`` and prints its top
     operators."""
     dev = resolve_device(device)
     cuda = dev.type == "cuda"
-    kw = dict(slots=slots, max_seq=max_seq, page_size=page_size, device=dev)
+    kw = dict(slots=slots, max_seq=max_seq, page_size=page_size, device=dev,
+              num_pages=num_pages, preemption=preemption)
     LLMEngine(params, cfg, **kw).generate(
         prompts_for(cfg, 2, 16, 64, seed=99), max_new_tokens=4)
     llm = LLMEngine(params, cfg, **kw)
@@ -139,12 +149,29 @@ def measure(params, cfg, prompts, *, max_new: int, slots: int,
            "device": str(dev), "requests": len(outs),
            "prompt_lens": [len(p) for p in prompts], "max_new": max_new,
            "slots": slots, "max_seq": max_seq, "paged": st["paged"],
-           "page_size": page_size,
+           "page_size": page_size, "num_pages": st.get("num_pages"),
            "wall_s": wall, "tok_s": st["tok_s"], "ttft_s": st["ttft"],
+           "decode_step_s": st["decode_step_s"],
            "steps": st["steps"], "readbacks": st["readbacks"],
            "prefill_buckets": st["prefill_shapes"],
+           "decode_captures": st["decode_captures"],
+           "graph_replays": st["graph_replays"],
+           "capture_s": st["capture_s"],
+           "table_uploads": st["table_uploads"],
+           "preemption": preemption, "preemptions": st["preemptions"],
+           "swapped_out_pages": st["swapped_out_pages"],
+           "swapped_in_pages": st["swapped_in_pages"],
            "launches": ops.launch_counts(),
            "all_done": all(o.finish_reason == "done" for o in outs)}
+    if st["paged"]:
+        pool = llm.engine.cm.pool
+        try:
+            pool.check()
+            out["pool_ok"] = True
+        except AssertionError as e:
+            out["pool_ok"] = False
+            out["pool_error"] = str(e)
+        out["pool_released"] = pool.pages_in_use == 0
     if cuda:
         out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
         out["card"] = card()
@@ -159,6 +186,16 @@ def measure(params, cfg, prompts, *, max_new: int, slots: int,
         out["device_kernel_s"] = dev_us / 1e6
         out["kernel_launches"] = sum(e.count for e in ev
                                      if e.key == "cudaLaunchKernel")
+        out["graph_launches"] = sum(e.count for e in ev
+                                    if e.key == "cudaGraphLaunch")
+        # kernels the device ran, graph replays' included (copies, sets
+        # and the profiler's own markers left out)
+        out["device_kernels"] = sum(
+            e.count for e in ev
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.is_user_annotation
+            and not e.key.startswith(("Memcpy", "Memset"))
+            and e.key != "Command Buffer Full")
         out["port_kernels"] = kernel_times(ev)
         sort = "self_cuda_time_total" if cuda else "self_cpu_time_total"
         print(ev.table(sort_by=sort, row_limit=profile_rows))
@@ -179,6 +216,7 @@ def run(args) -> dict:
     out, _ = measure(params, cfg, prompts, max_new=args.max_new,
                      slots=args.slots, max_seq=max_seq,
                      page_size=args.page_size, device=dev,
+                     num_pages=args.num_pages, preemption=args.preemption,
                      profile_rows=args.rows if args.profile else 0)
     return out
 
@@ -195,6 +233,11 @@ def main(argv=None) -> None:
     ap.add_argument("--max-seq", type=int, default=None,
                     help="rows a slot (default 512, or twice the window)")
     ap.add_argument("--page-size", type=int, default=16)
+    ap.add_argument("--num-pages", type=int, default=None,
+                    help="pages of the pool (default: full subscription)")
+    ap.add_argument("--preemption", default="swap",
+                    choices=("swap", "recompute"),
+                    help="what eviction does with a request's KV")
     ap.add_argument("--min-prompt", type=int, default=16)
     ap.add_argument("--max-prompt", type=int, default=256)
     ap.add_argument("--max-new", type=int, default=32)

@@ -35,18 +35,31 @@ def add_rms_norm(x, residual, w, eps=1e-6):
     return ops.fused_add_rmsnorm(x, residual, w, eps)
 
 
-def rope(x, positions, theta=10000.0):
-    """Rotary embedding. x: ``[..., seq, heads, head_dim]``, positions:
-    ``[..., seq]``; angles and products in fp32."""
-    half = x.shape[-1] // 2
-    freqs = theta ** (-torch.arange(0, half, dtype=F32, device=x.device)
-                      / half)
+def rope_angles(positions, head_dim: int, theta=10000.0):
+    """The rotary embedding's ``(cos, sin)`` for ``positions [..., seq]``,
+    each ``[..., seq, 1, head_dim // 2]`` in fp32: computed once and
+    applied to q and k of every layer."""
+    half = head_dim // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=F32,
+                                    device=positions.device) / half)
     angles = positions[..., :, None].to(F32) * freqs       # [.., S, half]
-    cos = torch.cos(angles)[..., :, None, :]
-    sin = torch.sin(angles)[..., :, None, :]
+    return torch.cos(angles)[..., :, None, :], \
+        torch.sin(angles)[..., :, None, :]
+
+
+def apply_rope(x, cos, sin):
+    """Rotate ``x [..., seq, heads, head_dim]`` by ``rope_angles``'
+    ``(cos, sin)``; products in fp32, cast back to x's dtype."""
+    half = x.shape[-1] // 2
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def rope(x, positions, theta=10000.0):
+    """Rotary embedding. x: ``[..., seq, heads, head_dim]``, positions:
+    ``[..., seq]``; angles and products in fp32."""
+    return apply_rope(x, *rope_angles(positions, x.shape[-1], theta))
 
 
 def embed_tokens(embedding, tokens):

@@ -114,6 +114,19 @@ def write_slot(cfg: ModelConfig, cache, new, slot: int):
     return cache
 
 
+def read_pages(cfg: ModelConfig, pool, pages, page_size: int) -> dict:
+    """Gather whole pages of the paged pool back into prefill layout,
+    ``{"k","v": [L, 1, n * page_size, Hkv, dh]}``: the exact inverse of
+    ``write_pages``. Swap preemption reads a victim's pages with this and
+    later writes the same bytes back through ``write_pages``, so its
+    logical cache is restored bit for bit."""
+    out = {}
+    for name, p in pool.items():
+        g = p[:, pages]                              # [L, n, page, Hkv, dh]
+        out[name] = g.reshape(g.shape[0], 1, -1, *g.shape[3:])
+    return out
+
+
 def write_pages(cfg: ModelConfig, pool, new, pages, page_size: int):
     """Scatter one request's prefill cache (batch 1) into whole pool pages,
     in place.

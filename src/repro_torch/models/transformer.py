@@ -198,14 +198,14 @@ def decode_step(params, cfg: ModelConfig, cache, token, pos):
     w = cfg.window
     slot = pos % w if w else pos
     kv_len = (torch.clamp(pos + 1, max=w) if w else pos + 1).to(torch.int32)
-    positions = pos[:, None]
+    cos, sin = L.rope_angles(pos[:, None], cfg.head_dim, cfg.rope_theta)
     for li, p in enumerate(params["layers"]):
         k_l, v_l = cache["k"][li], cache["v"][li]
         normed, residual = L.add_rms_norm(hidden, residual, p["attn_norm"],
                                           cfg.norm_eps)
         q, k_new, v_new = L.qkv_proj(p["attn"], normed, cfg)
-        q = L.rope(q, positions, cfg.rope_theta)
-        k_new = L.rope(k_new, positions, cfg.rope_theta)
+        q = L.apply_rope(q, cos, sin)
+        k_new = L.apply_rope(k_new, cos, sin)
         L.update_cache(k_l, v_l, k_new[:, 0], v_new[:, 0], slot)
         o = ops.flash_decode_attention(q[:, 0].contiguous(), k_l, v_l,
                                        kv_len=kv_len)
@@ -237,7 +237,7 @@ def decode_step_paged(params, cfg: ModelConfig, pool, page_table, token,
     pidx = torch.clamp(pos // page, 0, n_pt - 1).long()
     phys = page_table[torch.arange(b, device=token.device), pidx].long()
     off = (pos % page).long()
-    positions = pos[:, None]
+    cos, sin = L.rope_angles(pos[:, None], cfg.head_dim, cfg.rope_theta)
     residual = torch.zeros_like(hidden)
     kv_len = (pos + 1).to(torch.int32)
     for li, p in enumerate(params["layers"]):
@@ -245,8 +245,8 @@ def decode_step_paged(params, cfg: ModelConfig, pool, page_table, token,
         normed, residual = L.add_rms_norm(hidden, residual, p["attn_norm"],
                                           cfg.norm_eps)
         q, k_new, v_new = L.qkv_proj(p["attn"], normed, cfg)
-        q = L.rope(q, positions, cfg.rope_theta)
-        k_new = L.rope(k_new, positions, cfg.rope_theta)
+        q = L.apply_rope(q, cos, sin)
+        k_new = L.apply_rope(k_new, cos, sin)
         k_l[phys, off] = k_new[:, 0].to(k_l.dtype)
         v_l[phys, off] = v_new[:, 0].to(v_l.dtype)
         o = ops.paged_flash_decode_attention(q[:, 0].contiguous(), k_l, v_l,

@@ -2,13 +2,15 @@
 
 * ``SamplingParams`` (``serving/sampling.py``): greedy decoding.
 * ``Scheduler`` / ``FCFSScheduler`` (``serving/scheduler.py``): admission
-  order.
+  order; ``PreemptionPolicy`` / ``SwapPreemption`` /
+  ``RecomputePreemption``: eviction when the pool runs dry.
 * ``ContiguousCacheManager`` / ``PagedCacheManager`` / ``CacheConfig``
   (``serving/cache_manager.py``): the contiguous KV layout (a ring for a
   sliding-window config) and the paged one over ``PagePool``
   (``serving/paging.py``).
 * ``Engine`` (``serving/engine.py``): the device-resident core, one
-  batched host readback per decode step.
+  decode step (a CUDA graph replay on the card) and one batched host
+  readback per step.
 * ``LLMEngine`` (``serving/api.py``): ``generate()`` over the engine.
 """
 
@@ -19,8 +21,12 @@ from repro_torch.serving.cache_manager import (CacheConfig,
 from repro_torch.serving.engine import Engine, Request
 from repro_torch.serving.paging import PagePool
 from repro_torch.serving.sampling import SamplingParams
-from repro_torch.serving.scheduler import FCFSScheduler, Scheduler
+from repro_torch.serving.scheduler import (FCFSScheduler, PreemptionPolicy,
+                                           RecomputePreemption, Scheduler,
+                                           SwapPreemption, make_preemption)
 
 __all__ = ["CacheConfig", "ContiguousCacheManager", "Engine",
            "FCFSScheduler", "LLMEngine", "PagePool", "PagedCacheManager",
-           "Request", "RequestOutput", "SamplingParams", "Scheduler"]
+           "PreemptionPolicy", "RecomputePreemption", "Request",
+           "RequestOutput", "SamplingParams", "Scheduler", "SwapPreemption",
+           "make_preemption"]

@@ -28,6 +28,7 @@ class RequestOutput:
     prompt_len: int
     tokens: list
     ttft_s: Optional[float] = None      # submit -> first token
+    preemptions: int = 0                # times evicted and requeued
     finish_reason: str = "done"
     error: Optional[str] = None
 
@@ -43,15 +44,18 @@ class LLMEngine:
     serves from the paged pool where the architecture can page and from
     the contiguous cache otherwise (a sliding-window config's ring);
     ``page_size`` / ``num_pages`` configure the pool (``num_pages=None``
-    fully subscribes)."""
+    fully subscribes; fewer pages oversubscribe it). ``preemption``
+    (``"swap"`` or ``"recompute"``, or a ``PreemptionPolicy``) says what
+    happens to a request evicted when the pool runs dry."""
 
     def __init__(self, params, cfg: ModelConfig, *, slots: int = 4,
-                 max_seq: int = 512, paged: Optional[bool] = None,
-                 page_size: int = 16, num_pages: Optional[int] = None,
-                 device=None):
+                 max_seq: int = 512, preemption="swap",
+                 paged: Optional[bool] = None, page_size: int = 16,
+                 num_pages: Optional[int] = None, device=None):
         self.cfg = cfg
         self.engine = Engine(
             params, cfg, slots=slots, max_seq=max_seq, device=device,
+            preemption=preemption,
             cache_manager=CacheConfig(paged=paged, page_size=page_size,
                                       num_pages=num_pages))
         self._next_rid = 0
@@ -93,7 +97,8 @@ class LLMEngine:
         return [RequestOutput(
             rid=r.rid, prompt_len=len(r.prompt), tokens=list(r.out_tokens),
             ttft_s=(r.t_first - r.t_submit) if r.t_first else None,
-            finish_reason=r.finish_reason, error=r.error) for r in reqs]
+            preemptions=r.preemptions, finish_reason=r.finish_reason,
+            error=r.error) for r in reqs]
 
     def stats(self) -> dict:
         """The engine's counters."""

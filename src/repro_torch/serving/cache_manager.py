@@ -9,9 +9,10 @@ bookkeeping (trap page 0, per-slot page tables) and the trap-padded page
 vectors prefill admission writes through. ``CacheConfig`` is the
 declarative form (``paged=None`` picks the paged pool where the
 architecture can page, else the contiguous cache) that ``Engine`` and
-``LLMEngine`` resolve with their own cfg/slots/max_seq. The radix prefix
-cache and swap-out are not ported yet: the pool is fully subscribed by
-default, so no request ever waits for a page it will need.
+``LLMEngine`` resolve with their own cfg/slots/max_seq; ``num_pages``
+below full subscription oversubscribes the pool (admission then waits for
+pages, and decode growth preempts). ``restore`` / ``pages_of`` / ``read``
+serve swap preemption. The radix prefix cache is not ported yet.
 """
 
 from __future__ import annotations
@@ -46,6 +47,19 @@ class CacheManager:
     def evict(self, slot: int) -> None:
         """Release the slot's residency."""
 
+    def restore(self, slot: int, n_pages: int) -> bool:
+        """Hold ``n_pages`` for a swapped-out request coming back."""
+        return True
+
+    def pages_of(self, slot: int):
+        """The physical pages ``slot`` owns, or None for the contiguous
+        layout."""
+        return None
+
+    def read(self, cache, pages):
+        """Gather whole pages back into prefill layout (swap-out)."""
+        raise NotImplementedError("contiguous slots are never swapped out")
+
     def infeasible(self, n_tokens: int) -> Optional[str]:
         """Why a request of ``n_tokens`` can never be admitted, or None."""
         return None
@@ -68,6 +82,11 @@ class CacheManager:
         """The host page table the next dispatch sends to the device, or
         None for the contiguous layout."""
         return None
+
+    @property
+    def table_version(self) -> int:
+        """Changes to ``page_table()`` so far."""
+        return 0
 
     def prefill_pages(self, slot: int, n_tokens: int,
                       bucket_len: Optional[int]) -> Optional[np.ndarray]:
@@ -145,6 +164,14 @@ class PagedCacheManager(CacheManager):
         """Release the slot's pages."""
         self.pool.release(slot)
 
+    def restore(self, slot: int, n_pages: int) -> bool:
+        """All-or-nothing hold of ``n_pages`` for a swapped-out request."""
+        return self.pool.alloc_n(slot, n_pages)
+
+    def pages_of(self, slot: int) -> np.ndarray:
+        """The physical pages ``slot`` owns, in logical order."""
+        return np.asarray(self.pool.owned[slot], np.int64)
+
     def infeasible(self, n_tokens: int) -> Optional[str]:
         """Why a request of ``n_tokens`` can never be admitted, or None."""
         limit = min(self.pool.pages_per_slot, self.num_pages)
@@ -160,6 +187,10 @@ class PagedCacheManager(CacheManager):
         return registry.write_cached(self.cfg, cache, kv, pages=pages,
                                      page_size=self.page_size)
 
+    def read(self, cache, pages):
+        """Gather whole pages back into prefill layout (swap-out)."""
+        return registry.read_pages(self.cfg, cache, pages, self.page_size)
+
     # -- dispatch-loop queries ----------------------------------------------
     def backed(self, slot: int, write_pos: int) -> bool:
         """Is ``write_pos`` already backed by a page of ``slot``?"""
@@ -173,6 +204,11 @@ class PagedCacheManager(CacheManager):
     def page_table(self) -> np.ndarray:
         """The host page table the next dispatch sends to the device."""
         return self.pool.table
+
+    @property
+    def table_version(self) -> int:
+        """Changes to ``page_table()`` so far."""
+        return self.pool.version
 
     def prefill_pages(self, slot: int, n_tokens: int,
                       bucket_len: Optional[int]) -> np.ndarray:

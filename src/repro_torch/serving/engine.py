@@ -6,21 +6,54 @@ step is one pass of the model over every slot (``decode_step_paged`` on
 the paged pool or ``decode_step`` on the contiguous cache, then the
 greedy argmax and the stop conditions, all on the device) and ONE
 batched ``(token-or-minus-one, done)`` copy to the host. Step *k*'s copy
-is started right after its dispatch and read only after step *k+1* has
-been dispatched, so the host never waits on the step it just queued
-(``readbacks == steps``). Prefill admission pads prompts to pow2 buckets
-(at most the cache's rows: a sliding-window config prefills a prompt
-longer than its window at its exact length) and takes the logits at the
-true length, then writes the prompt's K/V into its pages or its slot.
+goes into one of two pinned host buffers right after its dispatch and is
+read only after step *k+1* has been dispatched, so the host never waits
+on the step it just queued (``readbacks == steps``). Prefill admission
+pads prompts to pow2 buckets (at most the cache's rows: a sliding-window
+config prefills a prompt longer than its window at its exact length) and
+takes the logits at the true length, then writes the prompt's K/V into
+its pages or its slot.
+
+**The captured step.** The step reads and writes a static carry: token,
+position, activity, emit count and budget per slot, the emit pair and,
+on the paged pool, a device page table ``[slots, pages_per_slot]``. These
+buffers are allocated once and only ever written in place (``copy_``,
+index assignment). ``_step_body`` is the whole step. On the CPU it runs
+eagerly; on the card it is captured once as a CUDA graph at construction,
+with every slot idle, and each step replays it: the counterpart of the
+JAX engine's one donated jitted program. The host copies its page table
+to the device table only when the table changed (``PagePool.version``),
+through pinned memory, queued before the replay on the same stream. The
+graph holds the genomes of the path's kernels installed at capture; a
+step that finds others installed (``ops.set_variants``) captures again
+first. A capture that fails raises: on the card the engine never runs the
+step eagerly. The kernels' launch counts are kept exact under replay
+(``ops.add_launch_counts``).
+
+Capture leaves no trace. Its warm-up passes run the real kernels (which
+allocates what they keep, such as the split-KV counters) with the carry
+saved before and restored after, so they write only the cache rows the
+next step writes before it reads them: an idle paged slot writes to the
+trap page, an idle contiguous slot row ``pos % S`` of its own stripe
+(which the next prefill overwrites and ``kv_len`` masks until then), and
+a resident slot the row of its next write.
+
+**Preemption** (paged pool below full subscription). Admission waits for
+pages; a decode write that finds the pool dry settles the in-flight step
+(finished slots free pages) and then evicts the ``PreemptionPolicy``'s
+victim, the youngest occupant, until the write fits. ``swap`` copies the
+victim's pages and device state to the host and restores them byte for
+byte into the static carry on re-admission; ``recompute`` drops them and
+re-prefills prompt + generated prefix, and a re-admission whose prefill
+gives the request's final token finishes it there.
 
 The host keeps an exact mirror of each slot's device position, emit count
 and activity: the stop conditions are deterministic, so the page
 allocator can back the next write without waiting for the readback.
 
-Not ported yet: sampling other than greedy (refused at submission),
-preemption (the pool is fully subscribed by default, and a decode write
-that finds no free page raises), the prefix cache, chaos, deadlines,
-speculative decoding and tensor parallelism.
+Not ported yet: sampling other than greedy (refused at submission), the
+prefix cache, chaos, deadlines, speculative decoding and tensor
+parallelism.
 """
 
 from __future__ import annotations
@@ -34,12 +67,14 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
 from repro_torch.models import registry
 from repro_torch.serving.cache_manager import make_cache_manager
 from repro_torch.serving.sampling import SamplingParams
-from repro_torch.serving.scheduler import FCFSScheduler
+from repro_torch.serving.scheduler import FCFSScheduler, make_preemption
 
 I32 = torch.int32
+WARMUP_STEPS = 2        # eager passes of the step body before a capture
 
 
 @dataclasses.dataclass
@@ -54,9 +89,14 @@ class Request:
     done: bool = False
     t_submit: float = 0.0               # set by Engine.submit
     t_first: float = 0.0                # wall time of the first token
+    preemptions: int = 0                # times evicted and requeued
     arrival: int = -1                   # submission rank, set by submit
     finish_reason: Optional[str] = None  # done | rejected
     error: Optional[str] = None
+    # swap-preemption payload: (host KV pages, token, pos, emitted,
+    # n_pages), the victim's exact device state, restored verbatim
+    swap_state: Optional[tuple] = dataclasses.field(default=None,
+                                                    repr=False)
 
 
 @dataclasses.dataclass
@@ -68,16 +108,19 @@ class _Slot:
 
 
 class Engine:
-    """Continuous-batching core: one decode pass and one batched host
-    readback per step."""
+    """Continuous-batching core: one decode step (a CUDA graph replay on
+    the card) and one batched host readback per step."""
 
     def __init__(self, params, cfg: ModelConfig, *, slots: int = 4,
-                 max_seq: int = 512, scheduler=None, cache_manager=None,
-                 device=None):
+                 max_seq: int = 512, scheduler=None, preemption=None,
+                 cache_manager=None, device=None):
         """``params`` in the port's layout (``registry.init_params`` or
         ``convert.params_from_jax``) are moved to ``device`` (default
         ``cuda``). ``scheduler`` is a ``Scheduler`` (FCFS when None);
-        ``cache_manager`` a ``CacheConfig`` or a ready manager."""
+        ``preemption`` a policy name (``"swap"``, the default, or
+        ``"recompute"``) or a ``PreemptionPolicy``; ``cache_manager`` a
+        ``CacheConfig`` or a ready manager. On the card the decode step
+        is captured here, before any admission."""
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = registry.module_for(cfg).cast_params(params, cfg,
@@ -86,17 +129,37 @@ class Engine:
         self.slots = [_Slot() for _ in range(slots)]
         self.scheduler = scheduler if scheduler is not None \
             else FCFSScheduler()
+        self.preemption = make_preemption(preemption)
+        self.preempt_mode = self.preemption.mode
         self.cm = make_cache_manager(cache_manager, cfg, slots, max_seq,
                                      self.device)
         self.cache = self.cm.init()
         self._pad_ok = registry.pad_prefill_ok(cfg)
+        self._cuda = self.device.type == "cuda"
+        # the static carry: allocated once, written only in place
         self._token = self._zeros(I32)
         self._pos = self._zeros(I32)
         self._active = self._zeros(torch.bool)
         self._emitted = self._zeros(I32)
         self._max_new = self._zeros(I32)
+        self._emit = torch.zeros((2, slots), dtype=I32, device=self.device)
+        self._table = None
+        if self.cm.paged:
+            # all trap pages, as the host table starts (version 0)
+            self._table = torch.zeros(self.cm.page_table().shape, dtype=I32,
+                                      device=self.device)
+        self._table_version = self.cm.table_version
+        self._table_uploads = 0
+        # step k's readback lands in _host[k % 2]
+        self._host = [torch.zeros((2, slots), dtype=I32,
+                                  pin_memory=self._cuda) for _ in range(2)]
+        self._path = ("fused_add_rmsnorm", "silu_and_mul",
+                      "paged_flash_decode" if self.cm.paged
+                      else "flash_decode")
         self.finished: list[Request] = []
+        self.preemptions = 0
         self._arrivals = 0
+        self._admissions = 0
         # (host copy, its event, request snapshot) of the last dispatched
         # step, not yet applied: applied after the NEXT dispatch
         self._pending = None
@@ -107,19 +170,142 @@ class Engine:
         self._ttfts: list[float] = []       # submit -> first token, s
         self._rejected = 0
         self._prefill_shapes: set[int] = set()
+        self._swapped_out_pages = 0
+        self._swapped_in_pages = 0
+        self._decode_s = 0.0                # wall time of steps that
+        self._decode_steps = 0              # admitted nothing, and count
+        self._graph = None
+        self._graph_key = None
+        self._graph_delta: dict = {}
+        self._captures = 0
+        self._replays = 0
+        self._warmups = 0
+        self._capture_s = 0.0
+        if self._cuda:
+            self._capture()
 
     def _zeros(self, dtype):
         return torch.zeros((self.n_slots,), dtype=dtype, device=self.device)
 
-    def _upload(self, arr: np.ndarray) -> torch.Tensor:
-        """A device copy of a host array that the host may change next.
-        On the card the copy goes through pinned memory without blocking
-        the host (the caching host allocator keeps the staging buffer
-        until the copy is done), so it does not wait for queued steps."""
-        t = torch.from_numpy(arr)
-        if self.device.type == "cuda":
+    def _carry(self) -> tuple:
+        return (self._token, self._pos, self._active, self._emitted,
+                self._max_new, self._emit)
+
+    def _upload(self, x) -> torch.Tensor:
+        """A device copy of a host array or tensor that the host may
+        change or drop next. On the card the copy goes through pinned
+        memory without blocking the host (the caching host allocator keeps
+        the staging buffer until the copy is done), so it does not wait
+        for queued steps."""
+        t = torch.from_numpy(x) if isinstance(x, np.ndarray) else x
+        if self._cuda:
             return t.pin_memory().to(self.device, non_blocking=True)
         return t.clone()
+
+    # -- the captured step ---------------------------------------------------
+
+    def _step_body(self) -> None:
+        """One decode step over every slot, on the static carry (the
+        greedy body of the JAX engine's ``_make_step``): the model decode,
+        the argmax, the stop conditions, and the emit pair ``(token or -1
+        where the slot was idle, done)``."""
+        logits, _ = self.cm.decode(self.params, self.cache, self._token,
+                                   self._pos, self._table)
+        nxt = torch.argmax(logits[:, :self.cfg.vocab], dim=-1).to(I32)
+        active = self._active
+        new_pos = self._pos + 1
+        new_emitted = self._emitted + active.to(I32)
+        done = active & ((new_emitted >= self._max_new)
+                         | (new_pos >= self.max_seq - 1))
+        self._emit[0].copy_(torch.where(active, nxt, -1))
+        self._emit[1].copy_(done)
+        self._token.copy_(nxt)
+        self._pos.copy_(new_pos)
+        self._emitted.copy_(new_emitted)
+        self._active.copy_(active & ~done)
+
+    def _variant_key(self) -> tuple:
+        return tuple(ops.get_variant(name) for name in self._path)
+
+    def _warm_up(self) -> None:
+        """``WARMUP_STEPS`` eager passes of the step body that leave the
+        carry as they found it; the cache rows they write are those the
+        next step writes before it reads them (module docstring)."""
+        saved = [b.clone() for b in self._carry()]
+        for _ in range(WARMUP_STEPS):
+            self._step_body()
+            for buf, old in zip(self._carry(), saved):
+                buf.copy_(old)
+        self._warmups += WARMUP_STEPS
+
+    def _capture(self) -> None:
+        """Capture ``_step_body`` as a CUDA graph with the genomes now
+        installed, after a warm-up on a side stream (PyTorch's recipe).
+        The launches the capture recorded are taken off the kernels'
+        counts and added back on each replay. Raises when the step cannot
+        be captured."""
+        t0 = time.perf_counter()
+        if self._graph is not None:
+            # the last replay ends before its graph's memory is reused
+            torch.cuda.synchronize(self.device)
+            self._graph = None
+        main = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            self._warm_up()
+        main.wait_stream(side)
+        before = ops.launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph):
+                self._step_body()
+        except RuntimeError as e:
+            raise RuntimeError(
+                "the decode step could not be captured as a CUDA graph "
+                f"(the engine does not run it eagerly on the card): {e}") \
+                from e
+        recorded = {name: n - before[name]
+                    for name, n in ops.launch_counts().items()}
+        ops.add_launch_counts({name: -n for name, n in recorded.items()})
+        self._graph, self._graph_delta = graph, recorded
+        self._graph_key = self._variant_key()
+        self._captures += 1
+        torch.cuda.synchronize(self.device)
+        self._capture_s += time.perf_counter() - t0
+
+    def _sync_table(self) -> None:
+        """Copy the host page table to the device table if it changed
+        since the last copy (queued before the step that reads it)."""
+        if self._table is None or self.cm.table_version == \
+                self._table_version:
+            return
+        src = torch.from_numpy(self.cm.page_table())
+        if self._cuda:
+            src = src.pin_memory()
+        self._table.copy_(src, non_blocking=True)
+        self._table_version = self.cm.table_version
+        self._table_uploads += 1
+
+    def _dispatch(self):
+        """Queue one decode step and its readback; returns (host buffer,
+        the event that marks the copy complete, or None on the CPU)."""
+        self._sync_table()
+        if not self._cuda:
+            self._step_body()
+        else:
+            if self._variant_key() != self._graph_key:
+                self._capture()
+            self._graph.replay()
+            ops.add_launch_counts(self._graph_delta)
+            self._replays += 1
+        host = self._host[self._steps % 2]
+        host.copy_(self._emit, non_blocking=True)
+        if not self._cuda:
+            return host, None
+        event = torch.cuda.Event()
+        event.record()
+        return host, event
 
     # -- request lifecycle ---------------------------------------------------
 
@@ -184,12 +370,23 @@ class Engine:
             if slot.req is not None or not len(self.scheduler):
                 continue
             req = self.scheduler.peek()
+            if req.swap_state is not None:
+                if not self._readmit_swapped(i, slot, req):
+                    return         # head-of-line: admission waits for pages
+                continue
             prompt = np.asarray(req.prompt)
+            was_requeued = bool(req.out_tokens)
+            if was_requeued:
+                # recompute re-admission: the generated prefix joins the
+                # prompt, so prefill rebuilds the cache the victim lost
+                prompt = np.concatenate(
+                    [prompt, np.asarray(req.out_tokens, prompt.dtype)])
             n = len(prompt)
             b = self._bucket_len(n)
             if not self.cm.alloc(i, n):
                 return             # head-of-line: admission waits for pages
             self.scheduler.pop()
+            self._admissions += 1
             pages = self.cm.prefill_pages(i, n, b)
             if pages is not None:
                 pages = self._upload(pages)
@@ -200,8 +397,19 @@ class Engine:
             tok0 = self._prefill(i, req, prompt, n, pages)
             req.out_tokens.append(int(tok0))   # host sync: admission only
             self._tokens_out += 1
-            req.t_first = time.perf_counter()
-            self._ttfts.append(req.t_first - req.t_submit)
+            if not req.t_first:
+                req.t_first = time.perf_counter()
+                self._ttfts.append(req.t_first - req.t_submit)
+            if was_requeued and (len(req.out_tokens) >= req.max_new_tokens
+                                 or n >= self.max_seq - 1):
+                # the re-admission's prefill gave the request's final
+                # token: in the run without preemption it came from the
+                # step that fired the stop condition, so it must not
+                # decode again
+                self._finish(req, "done")
+                self._active[i] = False
+                self.cm.evict(i)
+                continue
             slot.req = req
             slot.dpos = n
             slot.demitted = len(req.out_tokens)
@@ -210,9 +418,9 @@ class Engine:
     def _prefill(self, i: int, req: Request, prompt: np.ndarray, n: int,
                  pages: Optional[torch.Tensor]) -> torch.Tensor:
         """Prefill one prompt, write its pages (paged) or slot ``i``
-        (contiguous) and reset slot ``i``'s device state (the body of the
-        JAX engine's ``_make_admit``). Returns the first token (a device
-        scalar)."""
+        (contiguous) and reset slot ``i``'s carry in place (the body of
+        the JAX engine's ``_make_admit``). Returns the first token (a
+        device scalar)."""
         tokens = torch.tensor(prompt[None], dtype=torch.long,
                               device=self.device)
         logits, kv = registry.prefill(self.params, self.cfg, tokens,
@@ -226,10 +434,60 @@ class Engine:
         self._max_new[i] = req.max_new_tokens
         return tok0
 
+    def _readmit_swapped(self, i: int, slot: _Slot, req: Request) -> bool:
+        """Swap-in re-admission: write the victim's saved pages into the
+        pages it holds now and its device state into the carry, in place
+        (no prefill, no token). False when the pool cannot hold the pages
+        yet (head-of-line waits)."""
+        saved, tok, dpos, demitted, n_pages = req.swap_state
+        if not self.cm.restore(i, n_pages):
+            return False
+        self.scheduler.pop()
+        self._admissions += 1
+        pages = self._upload(self.cm.pages_of(i))
+        self.cache = self.cm.write(
+            self.cache, {name: self._upload(t) for name, t in saved.items()},
+            pages=pages)
+        self._token[i] = tok
+        self._pos[i] = dpos
+        self._active[i] = True
+        self._emitted[i] = demitted
+        self._max_new[i] = req.max_new_tokens
+        self._swapped_in_pages += n_pages
+        req.swap_state = None
+        slot.req = req
+        slot.dpos = dpos
+        slot.demitted = demitted
+        slot.dactive = True
+        return True
+
+    def _preempt(self, victim: int) -> None:
+        """Evict the occupant of ``victim`` and requeue it at the head:
+        ``swap`` first copies its pages and device state to the host,
+        ``recompute`` drops them. The in-flight step must be settled."""
+        assert self._pending is None
+        slot = self.slots[victim]
+        req = slot.req
+        if self.preemption.mode == "swap":
+            owned = self.cm.pages_of(victim)
+            saved = self.cm.read(self.cache, self._upload(owned))
+            req.swap_state = ({name: t.cpu() for name, t in saved.items()},
+                              int(self._token[victim]), slot.dpos,
+                              slot.demitted, len(owned))
+            self._swapped_out_pages += len(owned)
+        self.cm.evict(victim)
+        slot.req = None
+        slot.dactive = False
+        self._active[victim] = False
+        req.preemptions += 1
+        self.preemptions += 1
+        self.scheduler.requeue(req)
+
     def _ensure_pages(self) -> None:
-        """Back every device-active slot's next write position. With the
-        default full subscription a page is always free; a smaller pool
-        that runs dry raises, as preemption is not ported yet."""
+        """Back every device-active slot's next write position. When the
+        pool is dry: settle the in-flight step (finished slots free
+        pages), then evict the preemption policy's victim until the write
+        fits."""
         for i in range(self.n_slots):
             slot = self.slots[i]
             if slot.req is None or not slot.dactive:
@@ -237,15 +495,17 @@ class Engine:
             while not self.cm.backed(i, slot.dpos):
                 if self.cm.grow(i):
                     continue
-                self._drain()          # finished slots may free pages
+                self._drain()
                 if self.slots[i].req is None or not self.slots[i].dactive:
-                    break
+                    break              # the drain settled this very slot
                 if self.cm.has_free:
-                    continue
-                raise RuntimeError(
-                    "the KV pool has no free page for a decode write and "
-                    "preemption is not ported yet; use the default, fully "
-                    "subscribed pool (num_pages=None)")
+                    continue           # the drain freed finished slots
+                occ = [(j, self.slots[j].req) for j in range(self.n_slots)
+                       if self.slots[j].req is not None]
+                victim = self.preemption.select_victim(occ)
+                self._preempt(victim)
+                if victim == i:
+                    break              # preempted ourselves; requeued
 
     # -- one engine step -----------------------------------------------------
 
@@ -254,40 +514,11 @@ class Engine:
         return bool(len(self.scheduler) or self._pending is not None
                     or any(s.req is not None for s in self.slots))
 
-    def _decode(self):
-        """Dispatch one decode step over every slot (the greedy body of
-        the JAX engine's ``_make_step``); returns the device ``(emit_tok,
-        done)`` pair (emit -1 where the slot was idle)."""
-        table = self.cm.page_table()
-        if table is not None:
-            table = self._upload(table)
-        logits, self.cache = self.cm.decode(self.params, self.cache,
-                                            self._token, self._pos, table)
-        nxt = torch.argmax(logits[:, :self.cfg.vocab], dim=-1).to(I32)
-        new_pos = self._pos + 1
-        new_emitted = self._emitted + self._active.to(I32)
-        done = self._active & ((new_emitted >= self._max_new)
-                               | (new_pos >= self.max_seq - 1))
-        emit_tok = torch.where(self._active, nxt, -1)
-        self._token, self._pos, self._emitted = nxt, new_pos, new_emitted
-        self._active = self._active & ~done
-        return emit_tok, done
-
-    def _start_readback(self, emit_tok, done):
-        """Queue the step's one device-to-host copy; returns (host buffer,
-        event that marks it complete or None on the CPU)."""
-        packed = torch.stack([emit_tok, done.to(I32)])
-        if self.device.type != "cuda":
-            return packed, None
-        host = torch.empty(packed.shape, dtype=I32, pin_memory=True)
-        host.copy_(packed, non_blocking=True)
-        event = torch.cuda.Event()
-        event.record()
-        return host, event
-
     def step(self) -> bool:
         """Admit what fits, dispatch one decode step, and apply the
         previous step's readback. False when nothing could run."""
+        t0 = time.perf_counter()
+        admissions = self._admissions
         if self._pending is not None and \
                 (len(self.scheduler)
                  and all(s.req is not None for s in self.slots)
@@ -306,7 +537,7 @@ class Engine:
             self._ensure_pages()
             if not any(s.req is not None for s in self.slots):
                 return False
-        emit = self._start_readback(*self._decode())
+        emit = self._dispatch()
         self._steps += 1
         # mirror the device's stop conditions on the host shadows (this
         # step's readback is still in flight)
@@ -322,6 +553,9 @@ class Engine:
                                               [s.req for s in self.slots])
         if prev is not None:
             self._apply(prev)           # readback of step k-1 after k
+        if self._admissions == admissions:
+            self._decode_s += time.perf_counter() - t0
+            self._decode_steps += 1
         return True
 
     def _drain(self) -> None:
@@ -366,7 +600,8 @@ class Engine:
 
     def stats(self) -> dict:
         """Decode steps, readbacks, prefill buckets, throughput, time to
-        first token, scheduler and pool counters."""
+        first token, the captured step's counters, preemption, scheduler
+        and pool counters."""
         out = {
             "steps": self._steps,
             "readbacks": self._readbacks,
@@ -377,8 +612,22 @@ class Engine:
             "tokens": self._tokens_out,
             "tok_s": self._tokens_out / self._run_s if self._run_s else 0.0,
             "ttft": float(np.mean(self._ttfts)) if self._ttfts else None,
+            # host wall time of a step that admitted nothing: its
+            # dispatch and the previous step's readback
+            "decode_step_s": (self._decode_s / self._decode_steps
+                              if self._decode_steps else None),
             "rejected": self._rejected,
+            "decode_captures": self._captures,
+            "graph_replays": self._replays,
+            "capture_warmups": self._warmups,
+            "capture_s": self._capture_s,
+            "table_uploads": self._table_uploads,
+            "preemptions": self.preemptions,
+            "swapped_out_pages": self._swapped_out_pages,
+            "swapped_in_pages": self._swapped_in_pages,
         }
         out.update(self.scheduler.stats())
+        if self.cm.paged:
+            out["preempt_mode"] = self.preempt_mode
         out.update(self.cm.stats())
         return out

@@ -3,7 +3,8 @@
 The device holds one global ``[num_pages + 1, page_size, ...]`` block pool
 per cache leaf; this class owns the host bookkeeping: which physical pages
 are free, which slot owns which pages, and the per-slot page tables the
-decode step reads each dispatch.
+decode step reads each dispatch. ``version`` counts the changes to the
+tables, so the engine copies them to the device only when they changed.
 
 Physical page 0 is a reserved **trap page**: it is never allocated, and
 every unassigned page-table entry points at it. The decode step writes
@@ -45,6 +46,7 @@ class PagePool:
         self.refcnt = [0] * (num_pages + 1)  # index 0 = trap
         # device-facing tables; row = slot, entry = physical page (0 = trap)
         self.table = np.full((slots, pages_per_slot), TRAP_PAGE, np.int32)
+        self.version = 0                    # bumped by every table change
 
     @property
     def num_free(self) -> int:
@@ -68,6 +70,7 @@ class PagePool:
         self.refcnt[page] = 1
         self.owned[slot].append(page)
         self.table[slot, i] = page
+        self.version += 1
         return True
 
     def alloc_n(self, slot: int, n: int) -> bool:
@@ -82,6 +85,9 @@ class PagePool:
     def release(self, slot: int) -> None:
         """Return every page of ``slot`` to the free list; its table row
         reverts to the trap page."""
+        if not self.owned[slot]:
+            return
+        self.version += 1
         while self.owned[slot]:
             page = self.owned[slot].pop()
             self.refcnt[page] -= 1

@@ -1,5 +1,6 @@
 """Scheduling layer of the serving API: the admission-order protocol and
-its first-come-first-served policy.
+its first-come-first-served policy, and the preemption policies (who loses
+their pages when the pool runs dry, and what happens to their KV).
 
 The engine consults a ``Scheduler`` for *which waiting request to admit
 next*; everything else (slot residency, the decode step) stays in the
@@ -92,3 +93,61 @@ class FCFSScheduler:
         """Scheduler counters."""
         return {"scheduler": self.name, "sched_admitted": self.admitted,
                 "sched_reorders": self.reorders}
+
+
+# ---------------------------------------------------------------------------
+# preemption policy
+# ---------------------------------------------------------------------------
+
+@runtime_checkable
+class PreemptionPolicy(Protocol):
+    """Who loses their pages when the pool runs dry, and what eviction
+    does with their KV. ``mode`` is read by the engine: "swap" copies the
+    victim's pages and device state to the host for a byte-exact restore;
+    "recompute" drops them and re-prefills the prompt and the generated
+    prefix on re-admission."""
+
+    mode: str
+
+    def select_victim(self, occupants) -> int: ...
+
+
+class _YoungestVictim:
+    """FCFS-fair eviction: the most recently submitted occupant loses.
+    ``occupants`` is a list of ``(slot_index, request)`` pairs."""
+
+    def select_victim(self, occupants) -> int:
+        """The slot of the youngest occupant."""
+        return max(occupants, key=lambda t: t[1].arrival)[0]
+
+
+class SwapPreemption(_YoungestVictim):
+    """Youngest victim; its pages and device state go to the host and come
+    back byte for byte on re-admission, so its stream is unchanged."""
+
+    mode = "swap"
+
+
+class RecomputePreemption(_YoungestVictim):
+    """Youngest victim; its pages are dropped and re-admission re-prefills
+    prompt + generated prefix (cheaper in host memory; greedy-stable
+    only: a near-tied argmax can flip)."""
+
+    mode = "recompute"
+
+
+PREEMPTION_POLICIES = {"swap": SwapPreemption,
+                       "recompute": RecomputePreemption}
+
+
+def make_preemption(policy) -> PreemptionPolicy:
+    """Resolve a policy name (None: swap) or pass an instance through."""
+    if policy is None:
+        return SwapPreemption()
+    if isinstance(policy, str):
+        try:
+            return PREEMPTION_POLICIES[policy]()
+        except KeyError:
+            raise ValueError(f"unknown preemption policy {policy!r}; "
+                             f"have {sorted(PREEMPTION_POLICIES)}") from None
+    return policy

@@ -19,11 +19,12 @@ import itertools
 
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
-from repro_torch.core import costmodel
-from repro_torch.kernels import flash_decode, fused_add_rmsnorm, ops, ref
-from repro_torch.kernels import merge_attn_states, registry, silu_and_mul
+from repro_torch.core import costmodel  # noqa: E402
+from repro_torch.kernels import (  # noqa: E402
+    flash_decode, fused_add_rmsnorm, merge_attn_states, ops, ref, registry,
+    silu_and_mul)
 
 pytestmark = pytest.mark.cuda
 
@@ -818,3 +819,153 @@ def test_agent_loop_on_the_card(dev):
         assert len(log.entries) == 3 and log.best().correct
         assert all(r["latency_us"] > 0 for e in log.entries
                    for r in e.perf.per_shape)
+
+
+# -- the captured decode step of the serving engine ---------------------------
+
+def _smoke(arch, dtype="float32"):
+    from repro_torch import configs
+    from repro_torch.models import registry as models
+    cfg = dataclasses.replace(configs.smoke(arch), dtype=dtype)
+    return cfg, models.init_params(cfg, seed=5, device="cpu")
+
+
+def _serve(params, cfg, dev, lens, max_new, **kw):
+    """(streams by rid, engine) of ``lens``-long seeded prompts."""
+    from repro_torch.serving import Engine, Request
+    eng = Engine(params, cfg, device=dev, **kw)
+    rng = np.random.default_rng(5)
+    for rid, n in enumerate(lens):
+        eng.submit(Request(rid=rid, prompt=rng.integers(0, cfg.vocab, n),
+                           max_new_tokens=max_new))
+    eng.run()
+    if eng.cm.paged:
+        eng.cm.pool.check()
+    return {r.rid: list(r.out_tokens) for r in eng.finished}, eng
+
+
+def _want_launches(cfg, paged, steps, prefills, warmups=0):
+    """What the path launches: rmsnorm (twice a call for a two-pass
+    genome) 2L+1 times and silu L times a forward pass, the layout's
+    decode attention L times a decode pass; warm-up passes are decode
+    passes the device ran."""
+    rms = 2 if ops.get_variant("fused_add_rmsnorm").two_pass else 1
+    decode = steps + warmups
+    want = {"fused_add_rmsnorm": rms * (2 * cfg.n_layers + 1)
+            * (decode + prefills),
+            "silu_and_mul": cfg.n_layers * (decode + prefills),
+            "paged_flash_decode": 0, "flash_decode": 0,
+            "merge_attn_states_lse": 0}
+    want["paged_flash_decode" if paged else "flash_decode"] = \
+        cfg.n_layers * decode
+    return want
+
+
+SERVE_CASES = [("qwen2-0.5b", dict(max_seq=256), [5, 40, 17, 60, 9], 12),
+               ("h2o-danube-1.8b", dict(max_seq=192), [5, 40, 60, 100, 70],
+                30)]
+
+
+@pytest.mark.parametrize("arch,kw,lens,max_new", SERVE_CASES,
+                         ids=lambda c: c if isinstance(c, str) else None)
+def test_captured_engine_streams_equal_the_cpu(dev, arch, kw, lens,
+                                               max_new):
+    """fp32, reduced config: the engine that replays its captured step on
+    the card gives the CPU engine's streams and step count; every step is
+    one replay and one readback. The h2o prompts cross its 64-row window
+    and wrap the ring."""
+    cfg, params = _smoke(arch)
+    card, eng = _serve(params, cfg, dev, lens, max_new, slots=3, **kw)
+    cpu, ceng = _serve(params, cfg, "cpu", lens, max_new, slots=3, **kw)
+    st = eng.stats()
+    assert card == cpu and st["steps"] == ceng.stats()["steps"]
+    assert st["decode_captures"] == 1
+    assert st["graph_replays"] == st["readbacks"] == st["steps"] > 0
+    assert st["capture_s"] > 0 and ceng.stats()["capture_s"] == 0
+
+
+@pytest.mark.parametrize("arch,kw,lens,max_new", SERVE_CASES,
+                         ids=lambda c: c if isinstance(c, str) else None)
+def test_launch_counts_are_exact_under_replay(dev, arch, kw, lens, max_new,
+                                              monkeypatch):
+    from repro_torch.serving import Engine, Request
+    monkeypatch.setattr(ops, "_OVERRIDES", {})
+    cfg, params = _smoke(arch, "bfloat16")
+    eng = Engine(params, cfg, device=dev, slots=3, **kw)
+    ops.reset_launch_counts()
+    rng = np.random.default_rng(5)
+    for rid, n in enumerate(lens):
+        eng.submit(Request(rid=rid, prompt=rng.integers(0, cfg.vocab, n),
+                           max_new_tokens=max_new))
+    eng.run()
+    torch.cuda.synchronize()
+    st = eng.stats()
+    assert st["graph_replays"] == st["steps"]
+    assert ops.launch_counts() == _want_launches(cfg, eng.cm.paged,
+                                                 st["steps"], len(lens))
+
+
+def test_set_variants_after_capture_launches_the_new_genome(dev,
+                                                            monkeypatch):
+    """The graph holds the genomes installed at capture: the step after a
+    ``set_variants`` captures again, and from then on the two-pass rmsnorm
+    launches twice a call, as the counters show."""
+    from repro_torch.serving import Engine, Request
+    monkeypatch.setattr(ops, "_OVERRIDES", {})
+    cfg, params = _smoke("qwen2-0.5b")
+    eng = Engine(params, cfg, device=dev, slots=2, max_seq=256)
+    rng = np.random.default_rng(5)
+    for rid in range(2):
+        eng.submit(Request(rid=rid, prompt=rng.integers(0, cfg.vocab, 20),
+                           max_new_tokens=12))
+    for _ in range(3):
+        assert eng.step()
+    assert eng.stats()["decode_captures"] == 1
+    ops.set_variants(fused_add_rmsnorm=fused_add_rmsnorm.BASELINE)
+    ops.reset_launch_counts()
+    warm0 = eng.stats()["capture_warmups"]
+    assert eng.step()
+    torch.cuda.synchronize()
+    st = eng.stats()
+    warm = st["capture_warmups"] - warm0
+    assert st["decode_captures"] == 2 and warm > 0
+    assert ops.launch_counts() == _want_launches(cfg, True, 1, 0, warm)
+    ops.reset_launch_counts()
+    eng.run()
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == _want_launches(
+        cfg, True, eng.stats()["steps"] - 4, 0)
+    assert all(r.finish_reason == "done" and len(r.out_tokens) == 12
+               for r in eng.finished)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_oversubscribed_swap_equals_full_subscription_on_the_card(dev,
+                                                                  dtype):
+    """Swap restores the victim's bytes into the static carry and the
+    pool: the streams of an oversubscribed pool (6 pages of 16 for 3
+    slots of 64 rows) equal the fully subscribed pool's."""
+    from repro_torch.serving import CacheConfig
+    cfg, params = _smoke("qwen2-0.5b", dtype)
+    lens, kw = [30, 25, 28, 21, 26], dict(slots=3, max_seq=64)
+    full, _ = _serve(params, cfg, dev, lens, 20, **kw)
+    over, eng = _serve(params, cfg, dev, lens, 20, preemption="swap",
+                       cache_manager=CacheConfig(num_pages=6), **kw)
+    st = eng.stats()
+    assert st["preemptions"] >= 1 and st["swapped_in_pages"] > 0
+    assert over == full
+    assert st["graph_replays"] == st["readbacks"] == st["steps"]
+    assert eng.cm.pool.pages_in_use == 0
+
+
+def test_capture_raises_instead_of_running_eagerly(dev, monkeypatch):
+    """A step that cannot be captured fails the engine's construction:
+    here the split-KV counters, which a capture may not allocate, are
+    missing because the warm-up that allocates them is skipped."""
+    from repro_torch.serving import Engine
+    cfg, params = _smoke("qwen2-0.5b")
+    monkeypatch.setattr(flash_decode, "_COUNTERS", {})
+    monkeypatch.setattr(Engine, "_warm_up", lambda self: None)
+    with pytest.raises(RuntimeError, match="could not be captured.*"
+                       "counters must be allocated"):
+        Engine(params, cfg, device=dev, slots=3, max_seq=256)

@@ -23,21 +23,21 @@ import subprocess
 import sys
 from pathlib import Path
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
 
-from repro.kernels import flash_decode as jfd
-from repro.kernels import fused_add_rmsnorm as jrms
-from repro.kernels import merge_attn_states as jmerge
-from repro.kernels import ops as jops
-from repro.kernels import ref as jref
-from repro.kernels import silu_and_mul as jsilu
-from repro_torch.kernels import _build, ops, ref, registry
-from repro_torch.kernels import flash_decode, fused_add_rmsnorm
-from repro_torch.kernels import merge_attn_states, silu_and_mul
+from repro.kernels import flash_decode as jfd  # noqa: E402
+from repro.kernels import fused_add_rmsnorm as jrms  # noqa: E402
+from repro.kernels import merge_attn_states as jmerge  # noqa: E402
+from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro.kernels import silu_and_mul as jsilu  # noqa: E402
+from repro_torch.kernels import _build, ops, ref, registry  # noqa: E402
+from repro_torch.kernels import flash_decode, fused_add_rmsnorm  # noqa: E402
+from repro_torch.kernels import merge_attn_states, silu_and_mul  # noqa: E402
 
 REPO = Path(__file__).resolve().parents[1]
 DTYPES = ["float32", "bfloat16"]

@@ -22,30 +22,31 @@ import shutil
 import threading
 import time
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
+pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
 
-from repro.core import agents as jagents
-from repro.core import policy as jpolicy
-from repro.kernels import registry as jregistry
-from repro import search as jsearch
-from repro_torch.core import (CodingAgent, PlanningAgent, ProfilingAgent,
-                              TestingAgent, costmodel, optimize,
-                              optimize_single_agent, reintegrate)
-from repro_torch.core import agents, policy
-from repro_torch.kernels import _build, ops, registry
-from repro_torch.kernels import (flash_decode, fused_add_rmsnorm,
-                                  merge_attn_states, silu_and_mul)
-from repro_torch.kernels.registry import (KernelSpace, Knob, TestCase,
-                                          clear_suite_memos, get_space,
-                                          oracle_outputs, suite_tests)
-from repro_torch.search import (BeamSearch, EvalCache, Population,
-                                SearchOrchestrator, TieredEvaluator,
-                                genome_key)
-from repro_torch.search import cache as cache_mod
-from repro_torch.search import evaluator as evaluator_mod
+from repro.core import agents as jagents  # noqa: E402
+from repro.core import policy as jpolicy  # noqa: E402
+from repro.kernels import registry as jregistry  # noqa: E402
+from repro import search as jsearch  # noqa: E402
+from repro_torch.core import (  # noqa: E402
+    CodingAgent, PlanningAgent, ProfilingAgent, TestingAgent, costmodel,
+    optimize, optimize_single_agent, reintegrate)
+from repro_torch.core import agents, policy  # noqa: E402
+from repro_torch.kernels import _build, ops, registry  # noqa: E402
+from repro_torch.kernels import (  # noqa: E402
+    flash_decode, fused_add_rmsnorm, merge_attn_states, silu_and_mul)
+from repro_torch.kernels.registry import (  # noqa: E402
+    KernelSpace, Knob, TestCase, clear_suite_memos, get_space,
+    oracle_outputs, suite_tests)
+from repro_torch.search import (  # noqa: E402
+    BeamSearch, EvalCache, Population, SearchOrchestrator, TieredEvaluator,
+    genome_key)
+from repro_torch.search import cache as cache_mod  # noqa: E402
+from repro_torch.search import evaluator as evaluator_mod  # noqa: E402
 
 PAPER = ("fused_add_rmsnorm", "merge_attn_states_lse", "silu_and_mul")
 

@@ -19,20 +19,21 @@ package's ``core/agents.py``).
 import argparse
 import dataclasses
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
 
-from repro import configs as jconfigs
-from repro.models import registry as jregistry
-from repro.models import transformer as jtransformer
-from repro.serving.api import LLMEngine as JaxLLMEngine
-from repro.serving.paging import PagePool as JaxPagePool
-from repro_torch import configs
-from repro_torch.models import convert, registry, transformer
-from repro_torch.serving import LLMEngine, PagePool, SamplingParams
+from repro import configs as jconfigs  # noqa: E402
+from repro.models import registry as jregistry  # noqa: E402
+from repro.models import transformer as jtransformer  # noqa: E402
+from repro.serving.api import LLMEngine as JaxLLMEngine  # noqa: E402
+from repro.serving.paging import PagePool as JaxPagePool  # noqa: E402
+from repro_torch import configs  # noqa: E402
+from repro_torch.models import convert, registry, transformer  # noqa: E402
+from repro_torch.serving import (  # noqa: E402
+    LLMEngine, PagePool, SamplingParams)
 
 TOL = {"float32": dict(rtol=1e-5, atol=1e-4),
        "bfloat16": dict(rtol=3e-2, atol=3e-2)}
@@ -193,16 +194,6 @@ def test_engine_refuses_sampling_and_rejects_what_cannot_fit():
     assert outs[1].finish_reason == "done" and len(outs[1].tokens) == 3
 
 
-def test_engine_raises_when_the_pool_runs_dry():
-    """Preemption is not ported: an undersized pool raises instead of
-    serving wrong tokens."""
-    _, cfg, _, tree = setup("float32")
-    llm = LLMEngine(convert.params_from_jax(tree, cfg, "cpu"), cfg,
-                    slots=2, max_seq=64, num_pages=4, device="cpu")
-    with pytest.raises(RuntimeError, match="no free page"):
-        llm.generate([np.arange(30), np.arange(30)], max_new_tokens=20)
-
-
 def test_entry_points_need_a_gpu_unless_told_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     _, cfg, _, tree = setup("float32")
@@ -214,18 +205,42 @@ def test_entry_points_need_a_gpu_unless_told_cpu(monkeypatch):
         convert.params_from_jax(tree, cfg)
 
 
+def _serve_args(**kw):
+    args = dict(arch=ARCH, smoke=True, device="cpu", requests=5, slots=2,
+                max_seq=64, page_size=16, num_pages=None, preemption="swap",
+                min_prompt=3, max_prompt=30, max_new=4, crossing=0, seed=0,
+                profile=False, rows=0)
+    return argparse.Namespace(**{**args, **kw})
+
+
 def test_serve_command_runs_the_reduced_config_on_cpu():
     from repro_torch.launch import serve
-    out = serve.run(argparse.Namespace(
-        arch=ARCH, smoke=True, device="cpu", requests=5, slots=2,
-        max_seq=64, page_size=16, min_prompt=3, max_prompt=30, max_new=4,
-        crossing=0, seed=0, profile=False, rows=0))
+    out = serve.run(_serve_args())
     assert out["all_done"] and out["requests"] == 5 and out["paged"]
     assert out["readbacks"] == out["steps"] > 0
+    assert out["preemptions"] == 0 and out["pool_ok"]
+    assert out["decode_captures"] == out["graph_replays"] == 0
     assert out["launches"] == {"fused_add_rmsnorm": 0, "silu_and_mul": 0,
                                "paged_flash_decode": 0,
                                "merge_attn_states_lse": 0,
                                "flash_decode": 0}
+
+
+@pytest.mark.parametrize("preemption", ["swap", "recompute"])
+def test_serve_command_oversubscribes_on_cpu(preemption):
+    """Four pages of 16 for two slots of 64 rows: the serve command
+    preempts, every request finishes with its tokens, and the pool holds
+    its invariants and ends empty."""
+    from repro_torch.launch import serve
+    out = serve.run(_serve_args(num_pages=4, preemption=preemption,
+                                min_prompt=20, max_prompt=30, max_new=24))
+    assert out["all_done"] and out["num_pages"] == 4
+    assert out["preemptions"] >= 1 and out["preemption"] == preemption
+    assert out["pool_ok"] and out["pool_released"]
+    assert out["readbacks"] == out["steps"]
+    swapped = out["swapped_out_pages"]
+    assert swapped == out["swapped_in_pages"]
+    assert (swapped > 0) == (preemption == "swap")
 
 
 def test_seeded_init_is_reproducible_and_shaped():

@@ -24,21 +24,21 @@ package's ``core/agents.py``).
 
 import dataclasses
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
 
-from repro import configs as jconfigs
-from repro.models import layers as jlayers
-from repro.models import registry as jregistry
-from repro.models import transformer as jtransformer
-from repro.serving.api import LLMEngine as JaxLLMEngine
-from repro_torch import configs
-from repro_torch.models import convert, layers, registry
-from repro_torch.serving import (CacheConfig, ContiguousCacheManager,
-                                 LLMEngine, PagedCacheManager)
+from repro import configs as jconfigs  # noqa: E402
+from repro.models import layers as jlayers  # noqa: E402
+from repro.models import registry as jregistry  # noqa: E402
+from repro.models import transformer as jtransformer  # noqa: E402
+from repro.serving.api import LLMEngine as JaxLLMEngine  # noqa: E402
+from repro_torch import configs  # noqa: E402
+from repro_torch.models import convert, layers, registry  # noqa: E402
+from repro_torch.serving import (  # noqa: E402
+    CacheConfig, ContiguousCacheManager, LLMEngine, PagedCacheManager)
 
 TOL = {"float32": dict(rtol=1e-5, atol=1e-4),
        "bfloat16": dict(rtol=3e-2, atol=3e-2)}
