@@ -40,6 +40,25 @@ Phases, each of which fails the run (non-zero exit) on any error:
 3b. Tuned at the shapes: the shipped and the reintegrated rmsnorm and silu
    at every shape of 2b, each held against its plain version at the
    tolerance stated and timed beside the parent's shipped kernel of 2b.
+3c. The agent loop in sandboxed workers on the card. (a) Phase 3's search
+   again, in two spawn-mode workers (``isolation="process"``, journaled,
+   ``keep_going=True``): no kernel may fail, every best genome must
+   re-validate on the card, every genome both phases evaluated must have
+   the same verdict fields, and no worker may crash, time out, send a
+   corrupt result or be quarantined; each best time and the phase's wall
+   time are printed beside phase 3's, and the kernels' launches in the
+   workers are the ``tune_process`` path. (b) A chaos drill: a beam search
+   of ``fused_add_rmsnorm`` (one suite shape, bf16, validated on the card,
+   analytic profile) with a worker kill, a hang past the deadline, a
+   corrupted result and a victim that kills its worker twice, held to the
+   undisturbed thread-path run: one quarantine, three recoveries, the
+   same best genome, every other row equal, the wall time under a printed
+   bound. (c) ``kill -9`` and resume: this script, started again under a
+   hidden flag, runs a journaled greedy search of ``silu_and_mul`` timed
+   with CUDA events and SIGKILLs itself after its third eval record; the
+   search resumed here from the journal must finish with every journaled
+   row replayed bit for bit and only the genomes the journal lacked
+   validated and profiled.
 4. Serve: ``LLMEngine`` at full width in bf16 with seeded random weights,
    16 greedy requests of 32 tokens each: qwen2-0.5b from the paged pool,
    once with the shipped genomes and once with the reintegrated ones;
@@ -749,28 +768,40 @@ def decode_chain(layers: int = CHAIN_LAYERS):
     return run
 
 
-def phase_tune() -> tuple[bool, dict, dict]:
+TUNE_ROUNDS = 5
+
+
+def tune_kernels() -> tuple:
+    """The kernels phases 3 and 3c tune: the paper's three and both decode
+    attentions."""
+    from repro_torch.search import PAPER_KERNELS
+    return PAPER_KERNELS + ("flash_decode", "paged_flash_decode")
+
+
+def phase_tune() -> tuple[bool, dict, dict, dict]:
     """The agent loop on the card; returns (ok, launch counts of the loop,
-    {kernel: Log}), with the best genomes reintegrated."""
+    {kernel: Log}, {"cache": its EvalCache, "wall_s": its time}), with the
+    best genomes reintegrated."""
     from repro_torch.core import (ProfilingAgent, TestingAgent,
                                   optimize_single_agent, reintegrate)
     from repro_torch.kernels import ops
     from repro_torch.kernels.registry import get_space, suite_tests
-    from repro_torch.search import PAPER_KERNELS, optimize_all
+    from repro_torch.search import PAPER_KERNELS, EvalCache, optimize_all
 
-    rounds = 5
+    rounds = TUNE_ROUNDS
     testing = TestingAgent()
     profiling = ProfilingAgent(backend="cuda")
+    cache = EvalCache()
     t0 = time.perf_counter()
     ops.reset_launch_counts()
     results = optimize_all(rounds=rounds, testing=testing,
-                           profiling=profiling,
-                           kernels=PAPER_KERNELS + ("flash_decode",
-                                                    "paged_flash_decode"))
+                           profiling=profiling, cache=cache,
+                           kernels=tune_kernels())
     torch.cuda.synchronize()
     counts = ops.launch_counts()
-    log(f"  optimize_all(rounds={rounds}, greedy): "
-        f"{time.perf_counter() - t0:.1f} s; launches {counts}")
+    wall = time.perf_counter() - t0
+    log(f"  optimize_all(rounds={rounds}, greedy): {wall:.1f} s; launches "
+        f"{counts}")
     ok = True
     for name, lg in results.items():
         log(f"  -- {name} ({len(lg.entries)} entries, cache "
@@ -831,7 +862,252 @@ def phase_tune() -> tuple[bool, dict, dict]:
     reintegrate(results)
     log("  reintegrated: " + "; ".join(
         f"{n}={ops.get_variant(n).describe()}" for n in results))
-    return ok, counts, results
+    return ok, counts, results, {"cache": cache, "wall_s": wall}
+
+
+VERDICT = ("passed", "validated", "screened", "finish_reason", "failed_test",
+           "max_err")
+INFRA = ("worker_crashes", "eval_timeouts", "corrupt_results", "quarantined")
+
+
+def phase_process(tuned: dict, tune: dict) -> tuple[bool, dict]:
+    """3c (a): phase 3's search in two sandboxed workers on the card,
+    journaled, keep-going; returns (ok, the launch counts of the search,
+    which the workers made)."""
+    import tempfile
+
+    from repro_torch.core import ProfilingAgent, TestingAgent
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.registry import get_space, suite_tests
+    from repro_torch.search import (EvalCache, SearchFailure, SearchJournal,
+                                    optimize_all)
+
+    testing = TestingAgent()
+    cache = EvalCache()
+    with tempfile.TemporaryDirectory() as tmp:
+        journals = {k: SearchJournal(os.path.join(tmp, f"{k}.jsonl"))
+                    for k in tune_kernels()}
+        t0 = time.perf_counter()
+        ops.reset_launch_counts()
+        results = optimize_all(rounds=TUNE_ROUNDS, testing=testing,
+                               profiling=ProfilingAgent(backend="cuda"),
+                               cache=cache, kernels=tune_kernels(),
+                               isolation="process", workers=2,
+                               keep_going=True, journals=journals,
+                               pool_config={"deadline_s": 300.0})
+        counts = ops.launch_counts()
+        wall = time.perf_counter() - t0
+    log(f"  optimize_all(rounds={TUNE_ROUNDS}, greedy, isolation=process, "
+        f"workers=2): {wall:.1f} s (phase 3: {tune['wall_s']:.1f} s, this "
+        f"one's pool start-up included); launches in the workers {counts}")
+    ok = True
+    for name, lg in results.items():
+        if isinstance(lg, SearchFailure):
+            log(f"  FAIL {name}: the search failed: {lg.detail}")
+            ok = False
+            continue
+        space = get_space(name)
+        good, err = testing.validate(space, lg.best().code,
+                                     suite_tests(space, testing))
+        infra = {k: lg.meta["stages"][k] for k in INFRA}
+        log(f"  {name}: best {lg.best().perf.geomean_latency_us:.2f} us "
+            f"(phase 3: {tuned[name].best().perf.geomean_latency_us:.2f} us),"
+            f" {len(lg.entries)} entries, best re-validated {good} (max_err "
+            f"{err:.3f}), {infra}, journal {lg.meta['journal']}")
+        if not good or len(lg.entries) != TUNE_ROUNDS + 1 \
+                or any(infra.values()):
+            log(f"  FAIL {name}: best not correct, wrong length or infra "
+                "faults")
+            ok = False
+    ref = dict(tune["cache"].items())
+    common = [(k, r) for k, r in cache.items() if k in ref]
+    differ = [k for k, r in common
+              if [getattr(r, f) for f in VERDICT]
+              != [getattr(ref[k], f) for f in VERDICT]]
+    log(f"  verdicts of the {len(common)} genomes both phases evaluated: "
+        f"{len(differ)} differ")
+    for k in differ:
+        log(f"  FAIL verdict {k}: phase 3 "
+            f"{[getattr(ref[k], f) for f in VERDICT]}, 3c "
+            f"{[getattr(dict(common)[k], f) for f in VERDICT]}")
+    return ok and not differ and bool(common), counts
+
+
+def _rows(log_):
+    return [(e.round, e.code.describe(), bool(e.correct), float(e.max_err),
+             dataclasses.asdict(e.perf)) for e in log_.entries]
+
+
+def phase_chaos() -> bool:
+    """3c (b): the chaos drill on the card, against the thread path."""
+    from repro_torch.core import ProfilingAgent, TestingAgent
+    from repro_torch.kernels.registry import get_space, suite_tests
+    from repro_torch.reliability import Fault, SearchChaosInjector
+    from repro_torch.search import (EvalCache, EvalWorkerPool,
+                                    SearchOrchestrator, TieredEvaluator)
+
+    space = get_space("fused_add_rmsnorm")
+    space = dataclasses.replace(space, suite_shapes=space.suite_shapes[:1])
+
+    def roster():
+        return dict(testing=TestingAgent(dtypes=(torch.bfloat16,)),
+                    profiling=ProfilingAgent(backend="analytic"))
+    t0 = time.perf_counter()
+    ref = SearchOrchestrator(cache=EvalCache(), workers=2, **roster()).search(
+        space, strategy="beam", rounds=2)
+    ref_s = time.perf_counter() - t0
+    tests = suite_tests(space, roster()["testing"])
+
+    def key(g):
+        return EvalCache().key(space.name, g, tests,
+                               launch_key=space.launch_key)[1]
+    keys = [key(e.code) for e in ref.entries]
+    last = max(e.round for e in ref.entries)
+    best = ref.best().code
+    victims = [e.code for e, k in zip(ref.entries, keys)
+               if e.round == last and k != key(best) and keys.count(k) == 1]
+    others = [k for k in dict.fromkeys(keys)
+              if not victims or k != key(victims[-1])]
+    if not victims or len(others) < 3:
+        log(f"  FAIL the beam search is too small for the drill "
+            f"({len(ref.entries)} rows)")
+        return False
+    victim = victims[-1]
+    deadline, hang, bound = 20.0, 600.0, 240.0
+    chaos = SearchChaosInjector([
+        Fault("kill_worker", digest=others[0]),
+        Fault("hang_eval", digest=others[1], seconds=hang),
+        Fault("corrupt_result", digest=others[2]),
+        Fault("kill_worker", digest=key(victim), times=2)])
+    ev = TieredEvaluator()
+    t0 = time.perf_counter()
+    with EvalWorkerPool(workers=2, deadline_s=deadline, quarantine_after=2,
+                        chaos=chaos, on_stat=ev.bump) as pool:
+        got = SearchOrchestrator(cache=EvalCache(), workers=2, evaluator=ev,
+                                 isolation="process", pool=pool,
+                                 **roster()).search(space, strategy="beam",
+                                                    rounds=2)
+    wall = time.perf_counter() - t0
+    st = got.meta["stages"]
+    log(f"  chaos drill: beam rounds=2 workers=2, {len(got.entries)} rows; "
+        f"thread path {ref_s:.2f} s, with faults {wall:.1f} s (bound "
+        f"{bound:.0f} s; deadline {deadline:.0f} s, hang {hang:.0f} s); "
+        f"worker start-ups {[round(x, 2) for x in pool.startups]} s; "
+        + ", ".join(f"{k} {st[k]}" for k in (
+            "worker_crashes", "eval_timeouts", "corrupt_results", "retries",
+            "recoveries", "quarantined")))
+    ok = (st["quarantined"] == 1 and st["recoveries"] == 3
+          and chaos.exhausted and got.best().code == best and wall < bound
+          and len(got.entries) == len(ref.entries))
+    for (r, desc, correct, err, prof), want in zip(_rows(got), _rows(ref)):
+        if desc == victim.describe() and r == last:
+            ok &= not correct and prof == want[4]
+        elif (r, desc, correct, err, prof) != want:
+            log(f"  FAIL chaos row {r} {desc} differs from the thread path")
+            ok = False
+    log(f"  chaos drill: quarantined the victim only, the undisturbed best "
+        f"kept, other rows equal: {ok}")
+    return ok
+
+
+def journal_child(path: str, kill_after: int) -> None:
+    """``--journal-child``: a journaled greedy search of silu_and_mul on the
+    card, CUDA-event timed, that SIGKILLs this process right after its
+    ``kill_after``-th eval record."""
+    import signal
+
+    from repro_torch.core import ProfilingAgent, TestingAgent
+    from repro_torch.search import EvalCache, SearchJournal, SearchOrchestrator
+    journal = SearchJournal(path)
+    record, written = journal.record_eval, [0]
+
+    def record_and_die(key, result):
+        record(key, result)
+        written[0] += 1
+        if written[0] >= kill_after:
+            os.kill(os.getpid(), signal.SIGKILL)
+    journal.record_eval = record_and_die
+    SearchOrchestrator(testing=TestingAgent(),
+                       profiling=ProfilingAgent(backend="cuda"),
+                       cache=EvalCache()).search(
+        "silu_and_mul", rounds=TUNE_ROUNDS, journal=journal)
+
+
+def phase_resume() -> bool:
+    """3c (c): kill -9 a journaled search on the card, resume it here."""
+    import subprocess
+    import tempfile
+
+    from repro_torch.core import ProfilingAgent, TestingAgent
+    from repro_torch.kernels.registry import get_space, suite_tests
+    from repro_torch.search import (EvalCache, JournalMismatch, SearchJournal,
+                                    SearchOrchestrator)
+
+    kill_after = 3
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "silu_and_mul.jsonl")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--journal-child",
+             path, str(kill_after)], capture_output=True, text=True,
+            timeout=600)
+        child_s = time.perf_counter() - t0
+        with open(path) as f:
+            recs = [json.loads(line) for line in f if line.strip()]
+        journaled = {tuple(r["key"]): r for r in recs if r["type"] == "eval"}
+        testing = TestingAgent()
+        cache = EvalCache()
+        t0 = time.perf_counter()
+        try:
+            lg = SearchOrchestrator(testing=testing,
+                                    profiling=ProfilingAgent(backend="cuda"),
+                                    cache=cache).search(
+                "silu_and_mul", rounds=TUNE_ROUNDS,
+                journal=SearchJournal(path))
+        except JournalMismatch as exc:
+            log(f"  FAIL the resumed search left its journal: {exc}")
+            return False
+        resume_s = time.perf_counter() - t0
+    space = get_space("silu_and_mul")
+    tests = suite_tests(space, testing)
+    sd = recs[0]["tests_digest"]
+    replayed = 0
+    ok = proc.returncode == -9 and kill_after == sum(
+        r["type"] == "eval" for r in recs)
+    for e in lg.entries:
+        k = cache.key(space.name, e.code, tests, tests_digest=sd,
+                      launch_key=space.launch_key)
+        rec = journaled.get(k)
+        if rec is None or (not rec["validated"] and e.round):
+            continue
+        replayed += 1
+        same = (dataclasses.asdict(e.perf) == rec["profile"]
+                and bool(e.correct) == rec["passed"]
+                and float(e.max_err) == rec["max_err"])
+        if not same:
+            log(f"  FAIL round {e.round} was not replayed bit for bit")
+            ok = False
+    settled = dict(cache.items())
+    need_profile = [k for k in settled if k not in journaled]
+    need_validate = [k for k, r in settled.items() if r.validated and not
+                     journaled.get(k, {}).get("validated")]
+    st = lg.meta["stages"]
+    ran = (st["profile_runs"],
+           st["validations_full"] + st["validations_smoke_failed"])
+    good, err = testing.validate(space, lg.best().code, tests)
+    ok &= (len(lg.entries) == TUNE_ROUNDS + 1 and good
+           and lg.meta["journal"]["resumed"]
+           and ran == (len(need_profile), len(need_validate)))
+    log(f"  kill -9: the child ({child_s:.1f} s) exited {proc.returncode} "
+        f"after {len(journaled)} eval records; the resume ({resume_s:.1f} s)"
+        f" replayed {replayed} rows bit for bit, profiled {ran[0]} and "
+        f"validated {ran[1]} genomes (the journal lacked {len(need_profile)}"
+        f" profiles, {len(need_validate)} verdicts), {len(lg.entries)} "
+        f"entries, best re-validated {good} (max_err {err:.3f}), journal "
+        f"{lg.meta['journal']['resumed']}: {'ok' if ok else 'FAIL'}")
+    if proc.returncode != -9:
+        log(proc.stdout[-2000:] + proc.stderr[-2000:])
+    return ok
 
 
 def phase_serve(label: str, s: dict) -> tuple[bool, dict]:
@@ -1075,6 +1351,8 @@ def main() -> int:
     ap.add_argument("--parent", help="a checkout of the parent commit: the "
                     "shapes phase times its rmsnorm and silu too")
     ap.add_argument("--time-shapes", metavar="SRC", help=argparse.SUPPRESS)
+    ap.add_argument("--journal-child", nargs=2, metavar=("PATH", "N"),
+                    help=argparse.SUPPRESS)
     ap.add_argument("--time-serve", nargs=2, metavar=("SRC", "ARCH"),
                     help="time phase 4's serve of ARCH on the package "
                     "under SRC, and stop")
@@ -1092,6 +1370,9 @@ def main() -> int:
         print(json.dumps(time_serve(args.time_serve[1])))
         return 0
     sys.path.insert(0, os.path.join(ROOT, "src"))
+    if args.journal_child:
+        journal_child(args.journal_child[0], int(args.journal_child[1]))
+        return 0
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels.registry import get_space
     from repro_torch.launch.serve import card as card_line
@@ -1127,13 +1408,19 @@ def main() -> int:
     phase_s["shapes"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     log("phase 3: tune (the Astra agent loop on the card)")
-    ok["tune"], tune_counts, results = phase_tune()
+    ok["tune"], tune_counts, results, tune = phase_tune()
     phase_s["tune"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     log("phase 3b: the shipped and reintegrated rmsnorm and silu at the "
         "shapes of 2b, against their plain versions")
     ok["tuned shapes"] = phase_tuned_shapes(parent_us)
     phase_s["tuned shapes"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    log("phase 3c: the agent loop in sandboxed workers on the card")
+    ok["tune process"], process_counts = phase_process(results, tune)
+    ok["chaos"] = phase_chaos()
+    ok["resume"] = phase_resume()
+    phase_s["tune process"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     log("phase 4: serve qwen2-0.5b with the shipped genomes, then the "
         "reintegrated; h2o-danube-1.8b with the reintegrated")
@@ -1162,9 +1449,11 @@ def main() -> int:
                                       for k, v in phase_s.items()))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     for name, row in rows.items():
-        row["launches"] = (tune_counts[name] + serve_counts[name]
-                           + h2o_counts[name] + over_counts[name])
+        row["launches"] = (tune_counts[name] + process_counts[name]
+                           + serve_counts[name] + h2o_counts[name]
+                           + over_counts[name])
         row["launches_by_path"] = {"tune": tune_counts[name],
+                                   "tune_process": process_counts[name],
                                    "serve_shipped": shipped_counts[name],
                                    "serve_reintegrated": serve_counts[name],
                                    "serve_h2o": h2o_counts[name],
@@ -1175,6 +1464,10 @@ def main() -> int:
     idle = [n for n, r in rows.items() if not r["launches"]]
     if idle:
         log(f"FAIL: no launch on the driven paths for {idle}")
+    idle_workers = [n for n in rows if not process_counts[n]]
+    if idle_workers:
+        log(f"FAIL: no launch in the workers for {idle_workers}")
+        idle = idle or idle_workers
     log(json.dumps({"kernels": [rows[n] for n in SOURCES]}))
     log(card)
     if idle or not all(ok.values()):

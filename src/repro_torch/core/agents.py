@@ -112,7 +112,8 @@ class TestingAgent:
 
     def validate(self, space: KernelSpace, variant,
                  tests: Sequence[TestCase], *,
-                 oracle=None) -> tuple[bool, float]:
+                 oracle=None,
+                 timeout_s: float | None = None) -> tuple[bool, float]:
         """Check ``variant`` against the oracle over ``tests``.
 
         The bound is ``err <= atol + rtol * |want|``; non-finite oracle
@@ -120,9 +121,20 @@ class TestingAgent:
         returned ``max_err`` is tolerance-normalized (<= 1.0 passes).
         Validation stops at the first failing case. ``oracle`` optionally
         gives precomputed outputs aligned with ``tests``.
+
+        ``timeout_s`` is a cooperative deadline, checked between cases:
+        past it, ``reliability.EvalTimeout`` is raised. It cannot stop a
+        launch that never returns; the worker pool's kill does that.
         """
+        deadline = None if timeout_s is None \
+            else time.monotonic() + timeout_s
         worst = 0.0
         for i, t in enumerate(tests):
+            if deadline is not None and time.monotonic() > deadline:
+                from repro_torch.reliability import EvalTimeout
+                raise EvalTimeout(
+                    f"validation of {space.name} exceeded {timeout_s}s "
+                    f"({i}/{len(tests)} cases done)")
             rtol, atol = _tolerance(t.shape_info["dtype"])
             got = space.run(variant, *t.args)
             want = space.oracle(*t.args) if oracle is None else oracle[i]

@@ -20,7 +20,9 @@ keyed by the same digests plus a code-version salt (a hash of the port's
 kernel modules, CUDA sources, cost model and agents) and the name of the
 device that measured it: latencies measured on one card do not hold for
 another, and an edited kernel invalidates the file. Screened entries are
-not persisted. A torn trailing line (a writer killed mid-append) is
+not persisted; quarantined ones (``finish_reason="crashed"``) are, so a
+genome that repeatedly killed its worker never runs again, not even in a
+later process. A torn trailing line (a writer killed mid-append) is
 skipped with a warning and cut off at the next append.
 """
 
@@ -95,19 +97,22 @@ def _jsonable(obj):
 
 
 def encode_result(result: EvalResult) -> dict:
-    """JSON-able payload of one evaluation outcome (``cached`` is a
-    delivery flag, not an outcome, and is not stored)."""
+    """JSON-able payload of one evaluation outcome, shared by the
+    persistent cache and the search journal (``cached`` and ``replayed``
+    are delivery flags, not outcomes, and are not stored)."""
     return {
         "passed": bool(result.passed),
         "max_err": float(result.max_err),
         "validated": bool(result.validated),
         "screened": bool(result.screened),
+        "finish_reason": result.finish_reason,
+        "error": result.error,
         "failed_test": int(result.failed_test),
         "profile": dataclasses.asdict(result.profile),
     }
 
 
-def decode_result(rec: dict) -> EvalResult:
+def decode_result(rec: dict, *, replayed: bool = False) -> EvalResult:
     """Inverse of ``encode_result``."""
     from repro_torch.core.agents import Profile
     return EvalResult(
@@ -115,7 +120,10 @@ def decode_result(rec: dict) -> EvalResult:
         Profile(**rec["profile"]),
         validated=bool(rec["validated"]),
         screened=bool(rec.get("screened", False)),
-        failed_test=int(rec.get("failed_test", -1)))
+        finish_reason=rec.get("finish_reason", "ok"),
+        error=rec.get("error"),
+        failed_test=int(rec.get("failed_test", -1)),
+        replayed=replayed)
 
 
 class EvalCache:
@@ -162,21 +170,24 @@ class EvalCache:
 
     def try_hit(self, key: tuple, *,
                 validate: bool = True) -> EvalResult | None:
-        """The hit condition: a validated or screened entry always hits,
-        an unvalidated one only when no verdict is needed. Counts the hit
-        and returns the entry marked ``cached``, else None."""
+        """The hit condition: a validated, screened or crashed entry
+        always hits, an unvalidated one only when no verdict is needed.
+        Counts the hit and returns the entry marked ``cached``, else
+        None."""
         entry = self.get(key)
         if entry is not None and (entry.validated or entry.screened
-                                  or not validate):
+                                  or entry.failed_infra or not validate):
             self.count_hit()
             return dataclasses.replace(entry, cached=True)
         return None
 
-    def put(self, key: tuple, result: EvalResult) -> None:
-        """Store (and, unless screened, persist) one outcome."""
+    def put(self, key: tuple, result: EvalResult, *,
+            persist: bool = True) -> None:
+        """Store (and, unless screened or ``persist`` is False, persist)
+        one outcome."""
         with self._lock:
             self._store[key] = result
-        if self.persist_path and not result.screened:
+        if self.persist_path and persist and not result.screened:
             with self._persist_lock:
                 self._append_persistent(key, result)
 
@@ -195,6 +206,14 @@ class EvalCache:
     def note_profile_run(self, key: tuple) -> None:
         with self._lock:
             self._profile_runs[key] += 1
+
+    def clear_replayed(self, key: tuple) -> None:
+        """Drop a journal replay's mark after its one delivery, so a later
+        hit on the entry does not count its failure again."""
+        with self._lock:
+            entry = self._store.get(key)
+            if entry is not None and entry.replayed:
+                self._store[key] = dataclasses.replace(entry, replayed=False)
 
     # -- persistence ---------------------------------------------------------
 
@@ -250,6 +269,11 @@ class EvalCache:
     def __len__(self) -> int:
         with self._lock:
             return len(self._store)
+
+    def items(self) -> list[tuple[tuple, EvalResult]]:
+        """A snapshot of the (key, outcome) entries."""
+        with self._lock:
+            return list(self._store.items())
 
     def max_evals_per_genome(self) -> int:
         """Most validation or profiling runs of any one genome (the

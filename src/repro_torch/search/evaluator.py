@@ -1,5 +1,5 @@
 """Tiered candidate-evaluation engine (the counterpart of
-``repro/search/evaluator.py``, thread path).
+``repro/search/evaluator.py``).
 
 Validation is what a search spends most of its time on, so each genome
 goes through three tiers and pays for the expensive one only if it
@@ -26,6 +26,16 @@ A suite on the card is evaluated one genome at a time: every launch goes
 to one stream, so another thread's validation or oracle would land
 between a timing's events.
 
+``evaluate_many(..., isolation="process", pool=...)`` runs the profile and
+the validation in sandboxed spawn-mode workers (``workers.EvalWorkerPool``):
+a candidate that hangs, faults or corrupts what it reports costs a worker,
+never the search. A genome that faults repeatedly is quarantined: recorded
+in the cache as ``finish_reason="crashed"`` (``passed=False``) with the
+H100 cost model's analytic profile, computed in this process without
+launching anything, and never run again. The batch's frozen thresholds go
+to the workers, so a well-behaved genome's result is bit-identical to the
+thread path's. Infra faults never raise; the verdict carries them.
+
 ``TieredEvaluator(screen=False, smoke=False, share_oracle=False)`` is the
 sequential reference: the same verdicts, metered by the same counters.
 """
@@ -37,10 +47,15 @@ import threading
 from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 
-from repro_torch.core.agents import on_card
+from repro_torch.core.agents import ProfilingAgent, on_card
 from repro_torch.search.types import EvalResult, suite_digest
 
 _UNSET = object()                   # "no frozen snapshot": live bookkeeping
+# the counters a worker's evaluation moves, added to the parent's on return
+_STAGE_COUNTERS = ("oracle_computations", "validation_test_runs",
+                   "validations_full", "validations_smoke_failed",
+                   "screened_infeasible", "screened_dominated",
+                   "profile_runs")
 
 
 @dataclasses.dataclass
@@ -53,6 +68,14 @@ class EvalStats:
     screened_infeasible: int = 0    # genomes that cannot launch
     screened_dominated: int = 0     # genomes rejected as clearly dominated
     profile_runs: int = 0           # profiles computed
+    # process isolation's infra counters (0 on the thread path)
+    worker_crashes: int = 0         # a worker died mid-task, or raised
+    eval_timeouts: int = 0          # a task's deadline expired (worker shot)
+    corrupt_results: int = 0        # result checksum mismatches
+    retries: int = 0                # re-dispatches after infra faults
+    recoveries: int = 0             # tasks that succeeded after a fault
+    quarantined: int = 0            # genomes written off as crashed
+    workers_recycled: int = 0       # planned worker restarts (task budget)
 
     def as_dict(self) -> dict:
         """The counters as a dict."""
@@ -106,16 +129,26 @@ class TieredEvaluator:
                     result = EvalResult(True, 0.0, profile, validated=False)
                 cache.put(k, result)
         if _frozen is _UNSET:
-            self._note_delivery((space.name, sd), result)
+            self._note_delivery((space.name, sd), result, key=k, cache=cache)
         return result
 
     def evaluate_many(self, space, variants, tests, *, testing, profiling,
                       cache, validate: bool = True,
                       tests_digest: str | None = None,
-                      workers: int = 1) -> list[EvalResult]:
+                      workers: int = 1, isolation: str = "thread",
+                      pool=None) -> list[EvalResult]:
         """Evaluate a batch of genomes, concurrently when ``workers > 1``
-        and the suite is on the CPU; results align with ``variants`` and do
-        not depend on thread completion order."""
+        (on the thread path, when the suite is on the CPU); results align
+        with ``variants`` and do not depend on completion order.
+
+        ``isolation="process"`` sends each genome to ``pool`` (an
+        ``EvalWorkerPool``, which keeps one task at a time on the card);
+        infra faults never raise, they end as ``finish_reason="crashed"``.
+        """
+        if isolation not in ("thread", "process"):
+            raise ValueError(f"unknown isolation mode {isolation!r}")
+        if isolation == "process" and pool is None:
+            raise ValueError("isolation='process' requires an EvalWorkerPool")
         if not variants:
             return []
         sd = tests_digest if tests_digest is not None else suite_digest(tests)
@@ -124,21 +157,103 @@ class TieredEvaluator:
             frozen = (self._best_lat.get(skey),
                       dict(self._fail_counts.get(skey, ())))
 
-        def one(variant):
-            return self.evaluate(space, variant, tests, testing=testing,
-                                 profiling=profiling, cache=cache,
-                                 validate=validate, tests_digest=sd,
-                                 _frozen=frozen)
+        if isolation == "process":
+            def one(variant):
+                return self._evaluate_process(
+                    space, variant, tests, testing=testing,
+                    profiling=profiling, cache=cache, validate=validate,
+                    sd=sd, frozen=frozen, pool=pool)
+        else:
+            def one(variant):
+                return self.evaluate(space, variant, tests, testing=testing,
+                                     profiling=profiling, cache=cache,
+                                     validate=validate, tests_digest=sd,
+                                     _frozen=frozen)
 
-        if workers > 1 and len(variants) > 1 and not on_card(tests):
+        keys = [cache.key(space.name, v, tests, tests_digest=sd,
+                          launch_key=space.launch_key) for v in variants]
+        if workers > 1 and len(variants) > 1 and (
+                isolation == "process" or not on_card(tests)):
+            # the first genome of each key computes it, as in a serial
+            # run: genomes that launch the same code but differ in name
+            # would otherwise race to profile the entry
+            lead = {}
+            for i, k in enumerate(keys):
+                lead.setdefault(k, i)
+            firsts = sorted(lead.values())
             with ThreadPoolExecutor(
-                    max_workers=min(workers, len(variants))) as pool:
-                results = list(pool.map(one, variants))
+                    max_workers=min(workers, len(firsts))) as tpool:
+                computed = dict(zip(firsts, tpool.map(
+                    one, [variants[i] for i in firsts])))
+            results = [computed[i] if i in computed else one(v)
+                       for i, v in enumerate(variants)]
         else:
             results = [one(v) for v in variants]
-        for result in results:                  # deterministic order
-            self._note_delivery(skey, result)
+        for k, result in zip(keys, results):    # deterministic order
+            self._note_delivery(skey, result, key=k, cache=cache)
         return results
+
+    # -- process isolation ---------------------------------------------------
+
+    def _evaluate_process(self, space, variant, tests, *, testing, profiling,
+                          cache, validate, sd, frozen, pool) -> EvalResult:
+        """One genome through the worker pool, with ``evaluate``'s cache
+        semantics. Repeated faults become a quarantine verdict."""
+        k = cache.key(space.name, variant, tests, tests_digest=sd,
+                      launch_key=space.launch_key)
+        with cache.key_lock(k):
+            result = cache.try_hit(k, validate=validate)
+            if result is None:
+                cache.count_miss()
+                prior = cache.get(k)
+                task = {
+                    "kernel": space.name,
+                    "suite_shapes": space.suite_shapes,
+                    "variant": variant,
+                    "testing": testing,
+                    "profiling": profiling,
+                    "validate": validate,
+                    "tests_digest": sd,
+                    # an unvalidated entry's profile, which an upgrade
+                    # keeps (as ``evaluate`` does) rather than re-measures
+                    "prior": prior,
+                    "frozen": None if frozen is _UNSET else frozen,
+                    "config": {"screen": self.screen, "smoke": self.smoke,
+                               "share_oracle": self.share_oracle,
+                               "dominate_factor": self.dominate_factor},
+                }
+                outcome = pool.submit(task, digest=k[1])
+                if outcome.ok:
+                    result, deltas = outcome.result, outcome.stats
+                    with self._lock:
+                        for name in _STAGE_COUNTERS:
+                            setattr(self.stats, name,
+                                    getattr(self.stats, name)
+                                    + int(deltas.get(name, 0)))
+                    if prior is None and not result.screened:
+                        cache.note_profile_run(k)
+                    if result.validated:
+                        cache.note_validate_run(k)
+                    cache.put(k, result)
+                else:
+                    # quarantined: the genome repeatedly killed its worker.
+                    # Its row takes the cost model's analytic profile,
+                    # whatever the profiling backend: timing it here would
+                    # launch it in this process
+                    profile = prior.profile if prior is not None \
+                        else ProfilingAgent(
+                            reps=getattr(profiling, "reps", 100),
+                            backend="analytic").profile(space, variant,
+                                                        tests)
+                    result = EvalResult(False, 0.0, profile, validated=False,
+                                        finish_reason="crashed",
+                                        error=outcome.error)
+                    with self._lock:
+                        self.stats.quarantined += 1
+                    cache.put(k, result)     # persists: never run again
+        if frozen is _UNSET:
+            self._note_delivery((space.name, sd), result, key=k, cache=cache)
+        return result
 
     # -- the cascade ---------------------------------------------------------
 
@@ -150,7 +265,7 @@ class TieredEvaluator:
                 with self._lock:
                     self.stats.screened_infeasible += 1
                 return EvalResult(False, 0.0, profile, validated=False,
-                                  screened=True)
+                                  screened=True, finish_reason="screened")
             if frozen is _UNSET:
                 with self._lock:
                     best = self._best_lat.get(skey)
@@ -161,7 +276,7 @@ class TieredEvaluator:
                 with self._lock:
                     self.stats.screened_dominated += 1
                 return EvalResult(False, 0.0, profile, validated=False,
-                                  screened=True)
+                                  screened=True, finish_reason="screened")
 
         oracle = self._oracle(space, tests, sd)
         order = self._order(skey, profile, len(tests), frozen)
@@ -216,20 +331,30 @@ class TieredEvaluator:
         smoke = min(range(n), key=lambda i: (-fails.get(i, 0), lat[i], i))
         return [smoke] + [i for i in range(n) if i != smoke]
 
-    def _note_delivery(self, skey, result: EvalResult) -> None:
+    def _note_delivery(self, skey, result: EvalResult, *, key=None,
+                       cache=None) -> None:
         """Per-delivery bookkeeping in deterministic order: the smoke
-        test's failure count (computed results only, not cache hits) and
-        the best-latency watermark."""
-        if result.failed_test >= 0 and not result.cached:
+        test's failure count (computed or journal-replayed results, not
+        cache hits) and the best-latency watermark. A replayed entry
+        counts once: its mark is cleared at its first delivery."""
+        if result.failed_test >= 0 and (not result.cached or result.replayed):
             with self._lock:
                 self._fail_counts.setdefault(
                     skey, Counter())[result.failed_test] += 1
+        if result.replayed and cache is not None and key is not None:
+            cache.clear_replayed(key)
         if result.validated and result.passed:
             lat = result.profile.geomean_latency_us
             with self._lock:
                 cur = self._best_lat.get(skey)
                 if cur is None or lat < cur:
                     self._best_lat[skey] = lat
+
+    def bump(self, name: str, n: int = 1) -> None:
+        """Add ``n`` to one counter: how an ``EvalWorkerPool`` reports its
+        infra events to the evaluator that owns it."""
+        with self._lock:
+            setattr(self.stats, name, getattr(self.stats, name) + n)
 
     def stats_dict(self) -> dict:
         """A snapshot of the counters."""

@@ -10,28 +10,50 @@ counters go into ``Log.meta``.
 
 The suite lives on ``device``: the card unless ``device="cpu"`` is asked
 for, where the plain per-genome versions run and the profiling agent
-models the H100. Candidates are evaluated in this process
-(``isolation="thread"``); sandboxed worker processes and the resumable
-search journal of the JAX package are not ported yet (ROADMAP queue A).
+models the H100.
+
+Robustness (README, "Robust search"):
+
+  * ``isolation="process"`` evaluates candidates in sandboxed spawn-mode
+    workers (``workers.EvalWorkerPool``, made at the first search with
+    ``pool_config`` and closed by ``close()``): a hung or faulting
+    candidate costs a worker, never the search, and a repeat offender is
+    quarantined. On the card the pool keeps one task on the device at a
+    time.
+  * ``search(..., journal=SearchJournal(path))`` makes a search
+    resumable: journaled outcomes are seeded into the cache as replayed
+    entries and the (deterministic) strategy runs through them.
+  * ``optimize_all(keep_going=True)`` turns one kernel's infra failure
+    into a ``SearchFailure`` record instead of stopping the rest.
 """
 
 from __future__ import annotations
 
 import time
+import traceback
 
 from repro_torch.core.agents import (CodingAgent, PlanningAgent,
                                      ProfilingAgent, TestingAgent)
 from repro_torch.core.oplog import Log
 from repro_torch.kernels.registry import KernelSpace, get_space, suite_tests
-from repro_torch.search.cache import EvalCache
+from repro_torch.search.cache import EvalCache, decode_result
 from repro_torch.search.evaluator import TieredEvaluator
 from repro_torch.search.strategies import SearchContext, resolve_strategy
 
 PAPER_KERNELS = ("merge_attn_states_lse", "fused_add_rmsnorm",
                  "silu_and_mul")
-_NOT_PORTED = ("process isolation and the search journal are not ported "
-               "yet (ROADMAP queue A item 1: search/workers.py, "
-               "search/journal.py)")
+
+
+class SearchFailure(RuntimeError):
+    """One kernel's search died of an infrastructure error. Carries the
+    kernel name, so a keep-going caller can mark it failed and go on."""
+
+    def __init__(self, kernel: str, cause: BaseException):
+        super().__init__(f"search for {kernel!r} failed: {cause!r}")
+        self.kernel = kernel
+        self.cause = cause
+        self.detail = "".join(traceback.format_exception_only(
+            type(cause), cause)).strip()
 
 
 class SearchOrchestrator:
@@ -46,10 +68,10 @@ class SearchOrchestrator:
                  evaluator: TieredEvaluator | None = None,
                  workers: int = 4,
                  isolation: str = "thread",
+                 pool=None,
+                 pool_config: dict | None = None,
                  device=None):
-        if isolation == "process":
-            raise NotImplementedError(_NOT_PORTED)
-        if isolation != "thread":
+        if isolation not in ("thread", "process"):
             raise ValueError(f"unknown isolation mode {isolation!r}")
         self.testing = testing if testing is not None \
             else TestingAgent(device=device)
@@ -62,25 +84,80 @@ class SearchOrchestrator:
         self.evaluator = evaluator if evaluator is not None \
             else TieredEvaluator()
         self.workers = max(1, workers)
+        self.isolation = isolation
+        self._pool = pool               # the caller's to close when passed
+        self._owns_pool = pool is None
+        self._pool_config = dict(pool_config or {})
+
+    def _ensure_pool(self):
+        """The worker pool, made at the first process-isolated search on
+        the testing agent's device (a child takes seconds to start)."""
+        if self._pool is None:
+            from repro_torch.search.workers import EvalWorkerPool
+            cfg = dict(self._pool_config)
+            cfg.setdefault("workers", self.workers)
+            cfg.setdefault("device", self.testing.device)
+            self._pool = EvalWorkerPool(on_stat=self.evaluator.bump, **cfg)
+        return self._pool
+
+    def close(self) -> None:
+        """Release the worker pool (nothing to do for thread isolation or
+        a caller's pool)."""
+        if self._owns_pool and self._pool is not None:
+            self._pool.close()
+            self._pool = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False
 
     def search(self, kernel: str | KernelSpace, *, strategy="greedy",
                rounds: int = 5, verbose: bool = False,
                journal=None) -> Log:
-        """One search of ``kernel``; returns its Log."""
-        if journal is not None:
-            raise NotImplementedError(_NOT_PORTED)
+        """One search of ``kernel``; returns its Log. With ``journal`` (a
+        ``SearchJournal``) the search is journaled, and resumed from what
+        the journal already holds."""
         space = get_space(kernel) if isinstance(kernel, str) else kernel
         strat = resolve_strategy(strategy)
         tests = suite_tests(space, self.testing)
+        pool = self._ensure_pool() if self.isolation == "process" else None
         ctx = SearchContext(space=space, testing=self.testing,
                             profiling=self.profiling, planning=self.planning,
                             coding=self.coding, tests=tests,
                             cache=self.cache, rounds=rounds, verbose=verbose,
-                            evaluator=self.evaluator, workers=self.workers)
+                            evaluator=self.evaluator, workers=self.workers,
+                            isolation=self.isolation, pool=pool,
+                            journal=journal)
+        resumed, replayed = False, 0
+        if journal is not None:
+            from repro_torch.search.cache import code_version_salt
+            config = {k: v for k, v in vars(strat).items()
+                      if isinstance(v, (bool, int, float, str))}
+            resumed = journal.open(
+                kernel=space.name, strategy=strat.name,
+                strategy_config=config, rounds=rounds,
+                tests_digest=ctx.tests_digest, salt=code_version_salt())
+            # journaled outcomes become replayed cache entries; entries the
+            # cache already holds (a persistent cache's) take precedence, so
+            # this run and an uninterrupted one see the same state
+            for key, rec in journal.replay.items():
+                if self.cache.get(key) is None:
+                    self.cache.put(key, decode_result(rec, replayed=True),
+                                   persist=False)
+                    replayed += 1
         before = self.cache.stats()
         ebefore = self.evaluator.stats_dict()
         t0 = time.perf_counter()
-        log = strat.run(ctx)
+        try:
+            log = strat.run(ctx)
+            if journal is not None:
+                journal.finish(log)
+        finally:
+            if journal is not None:
+                journal.close()
         wall = time.perf_counter() - t0
         after = self.cache.stats()
         eafter = self.evaluator.stats_dict()
@@ -98,7 +175,12 @@ class SearchOrchestrator:
                 "max_evals_per_genome": after["max_evals_per_genome"],
             },
             stages={k: eafter[k] - ebefore[k] for k in eafter},
+            isolation=self.isolation,
         )
+        if journal is not None:
+            log.meta.update(journal={"path": journal.path,
+                                     "resumed": resumed,
+                                     "replayed": replayed})
         if verbose:
             c, s = log.meta["cache"], log.meta["stages"]
             print(f"[{space.name}] {strat.name}: {len(log.entries)} log "
@@ -120,6 +202,7 @@ def optimize(kernel: str | KernelSpace, *, rounds: int = 5,
              evaluator: TieredEvaluator | None = None,
              workers: int = 4,
              isolation: str = "thread",
+             pool_config: dict | None = None,
              journal=None,
              device=None,
              verbose: bool = False) -> Log:
@@ -128,9 +211,11 @@ def optimize(kernel: str | KernelSpace, *, rounds: int = 5,
     orch = SearchOrchestrator(testing=testing, profiling=profiling,
                               planning=planning, coding=coding, cache=cache,
                               evaluator=evaluator, workers=workers,
-                              isolation=isolation, device=device)
-    return orch.search(kernel, strategy=strategy, rounds=rounds,
-                       verbose=verbose, journal=journal)
+                              isolation=isolation, pool_config=pool_config,
+                              device=device)
+    with orch:
+        return orch.search(kernel, strategy=strategy, rounds=rounds,
+                           verbose=verbose, journal=journal)
 
 
 def optimize_all(*, rounds: int = 5, strategy="greedy",
@@ -141,14 +226,33 @@ def optimize_all(*, rounds: int = 5, strategy="greedy",
                  cache: EvalCache | None = None,
                  workers: int = 4,
                  isolation: str = "thread",
+                 pool_config: dict | None = None,
+                 journals: dict | None = None,
+                 keep_going: bool = False,
                  device=None) -> dict[str, Log]:
     """Optimize the paper's kernels; returns {kernel: Log}. One
-    orchestrator (one cache, one evaluator) serves every search."""
-    orch = SearchOrchestrator(testing=testing, profiling=profiling,
-                              cache=cache, workers=workers,
-                              isolation=isolation, device=device)
-    return {k: orch.search(k, strategy=strategy, rounds=rounds,
-                           verbose=verbose) for k in kernels}
+    orchestrator (one cache, one evaluator, one worker pool) serves every
+    search.
+
+    ``keep_going=True``: a kernel whose search dies of an infrastructure
+    error maps to a ``SearchFailure`` instead of a Log, and the remaining
+    kernels still run. ``journals`` maps kernel name -> ``SearchJournal``.
+    """
+    results: dict[str, Log] = {}
+    with SearchOrchestrator(testing=testing, profiling=profiling,
+                            cache=cache, workers=workers,
+                            isolation=isolation, pool_config=pool_config,
+                            device=device) as orch:
+        for k in kernels:
+            try:
+                results[k] = orch.search(k, strategy=strategy, rounds=rounds,
+                                         verbose=verbose,
+                                         journal=(journals or {}).get(k))
+            except Exception as exc:    # noqa: BLE001 — keep-going boundary
+                if not keep_going:
+                    raise
+                results[k] = SearchFailure(k, exc)
+    return results
 
 
 def reintegrate(results: dict[str, Log]) -> None:

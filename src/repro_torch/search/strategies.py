@@ -50,6 +50,9 @@ class SearchContext:
     tests_digest: str = ""
     evaluator: Any = None           # TieredEvaluator
     workers: int = 1                # evaluate_many concurrency
+    isolation: str = "thread"       # "process": sandboxed eval workers
+    pool: Any = None                # workers.EvalWorkerPool (process mode)
+    journal: Any = None             # journal.SearchJournal; None = off
 
     def __post_init__(self) -> None:
         if not self.tests_digest:
@@ -65,22 +68,49 @@ class SearchContext:
 
     def evaluate(self, variant, *, validate: bool = True) -> EvalResult:
         """One genome through the evaluator."""
-        return self.evaluator.evaluate(
+        if self.isolation == "process":
+            # the batch API owns the process path
+            return self.evaluate_many([variant], validate=validate)[0]
+        result = self.evaluator.evaluate(
             self.space, variant, self.tests,
             testing=self.testing, profiling=self.profiling,
             cache=self.cache, validate=validate,
             tests_digest=self.tests_digest)
+        self._journal_results([variant], [result])
+        return result
 
     def evaluate_many(self, variants, *,
                       validate: bool = True) -> list[EvalResult]:
         """Evaluate a batch of genomes, concurrently (and still
         deterministically) when ``workers > 1``. Results align with
         ``variants``; duplicates collapse in the cache."""
-        return self.evaluator.evaluate_many(
+        results = self.evaluator.evaluate_many(
             self.space, variants, self.tests,
             testing=self.testing, profiling=self.profiling, cache=self.cache,
             validate=validate, tests_digest=self.tests_digest,
-            workers=self.workers)
+            workers=self.workers, isolation=self.isolation, pool=self.pool)
+        self._journal_results(variants, results)
+        return results
+
+    def note_round(self, round_: int, variants) -> None:
+        """Write-ahead: journal a round's candidates before evaluating them
+        (on resume, the determinism self-check)."""
+        if self.journal is not None:
+            self.journal.record_round(
+                round_, [genome_digest(v) for v in variants])
+
+    def _journal_results(self, variants, results) -> None:
+        # fresh outcomes only: cache hits (journal replays among them) are
+        # already durable
+        if self.journal is None:
+            return
+        for variant, result in zip(variants, results):
+            if not result.cached:
+                self.journal.record_eval(
+                    self.cache.key(self.space.name, variant, self.tests,
+                                   tests_digest=self.tests_digest,
+                                   launch_key=self.space.launch_key),
+                    result)
 
     def history_entry(self, variant, result: EvalResult,
                       suggestion=None) -> dict:
@@ -106,6 +136,7 @@ class GreedyChain(SearchStrategy):
     def run(self, ctx: SearchContext) -> Log:
         space = ctx.space
         s_prev = space.baseline
+        ctx.note_round(0, [s_prev])
         base = ctx.evaluate(s_prev, validate=False)
         log = Log()
         log.append(LogEntry(0, s_prev, True, base.profile,
@@ -117,6 +148,7 @@ class GreedyChain(SearchStrategy):
             sugg = ctx.planning.suggest(space, s_prev, pass_prev, perf_prev,
                                         history)
             s_new = ctx.coding.apply(space, s_prev, sugg)
+            ctx.note_round(r, [s_new])
             res = ctx.evaluate(s_new)
             log.append(LogEntry(r, s_new, res.passed, res.profile,
                                 rationale=sugg.rationale,
@@ -147,6 +179,7 @@ class BeamSearch(SearchStrategy):
 
     def run(self, ctx: SearchContext) -> Log:
         space = ctx.space
+        ctx.note_round(0, [space.baseline])
         base = ctx.evaluate(space.baseline, validate=False)
         log = Log()
         log.append(LogEntry(0, space.baseline, True, base.profile,
@@ -173,6 +206,7 @@ class BeamSearch(SearchStrategy):
             # Phase 2: evaluate the round's novel genomes as one concurrent
             # batch; results come back in proposal order, so the Log is
             # identical to the old one-at-a-time loop.
+            ctx.note_round(r, [c for c, _, _ in batch])
             results = ctx.evaluate_many([c for c, _, _ in batch])
             children = []
             for (child, sugg, hist), cres in zip(batch, results):
@@ -241,6 +275,7 @@ class Population(SearchStrategy):
     def run(self, ctx: SearchContext) -> Log:
         space = ctx.space
         rng = random.Random(self.seed)
+        ctx.note_round(0, [space.baseline])
         base = ctx.evaluate(space.baseline, validate=False)
         log = Log()
         log.append(LogEntry(0, space.baseline, True, base.profile,
@@ -259,6 +294,7 @@ class Population(SearchStrategy):
                 seen.add(dg)
                 novel.append(genome)
             # one concurrent batch per generation; results in genome order
+            ctx.note_round(gen, novel)
             for genome, res in zip(novel, ctx.evaluate_many(novel)):
                 log.append(LogEntry(gen, genome, res.passed, res.profile,
                                     rationale=f"population gen {gen}",

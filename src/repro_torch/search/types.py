@@ -63,6 +63,23 @@ class EvalResult:
     # cannot launch, or is clearly dominated); validation never ran, so
     # ``passed`` is a screening verdict, not a correctness verdict
     screened: bool = False
+    # how the evaluation ended: "ok" (the pipeline ran to a verdict),
+    # "screened" (rejected from the profile alone) or "crashed" (the genome
+    # was quarantined after it repeatedly crashed or hung its isolation
+    # worker; ``passed`` is False and ``error`` says why). A crashed
+    # verdict is final: the cache serves it and the genome never runs again
+    finish_reason: str = "ok"
+    error: str | None = None        # infra detail of a crashed genome
     # suite index of the test that failed validation (-1: none failed);
-    # the evaluator's smoke ordering counts these
+    # the evaluator's smoke ordering counts these, and a resumed search
+    # rebuilds those counts from it
     failed_test: int = -1
+    # True: replayed from a search journal on resume; its failure count is
+    # applied once, at its first delivery. Never persisted
+    replayed: bool = False
+
+    @property
+    def failed_infra(self) -> bool:
+        """True when the verdict is an infrastructure failure (a worker
+        crash or timeout quarantine), not a correctness check."""
+        return self.finish_reason == "crashed"

@@ -821,6 +821,132 @@ def test_agent_loop_on_the_card(dev):
                    for r in e.perf.per_shape)
 
 
+# -- the search in sandboxed workers on the card ------------------------------
+
+def _verdicts(cache):
+    return {k: (r.passed, r.validated, r.screened, r.finish_reason,
+                r.failed_test, r.max_err) for k, r in cache.items()}
+
+
+def test_process_search_gives_the_thread_verdicts_on_the_card(dev):
+    """A greedy search of silu_and_mul in two workers on the card: every
+    genome both paths evaluated has the thread path's verdict fields (the
+    timings, hence maybe the path, differ), and the workers' launches are
+    counted here."""
+    from repro_torch.core import ProfilingAgent, TestingAgent
+    from repro_torch.search import EvalCache, SearchOrchestrator
+    space = registry.get_space("silu_and_mul")
+    space = dataclasses.replace(space, suite_shapes=space.suite_shapes[-2:])
+    caches = [EvalCache(), EvalCache()]
+    logs = []
+    for cache, isolation in zip(caches, ("thread", "process")):
+        before = ops.launch_counts()["silu_and_mul"]
+        with SearchOrchestrator(testing=TestingAgent(), cache=cache,
+                                profiling=ProfilingAgent(reps=5,
+                                                         backend="cuda"),
+                                isolation=isolation, workers=2) as orch:
+            logs.append(orch.search(space, rounds=3))
+        assert ops.launch_counts()["silu_and_mul"] > before
+    mine, ref = _verdicts(caches[1]), _verdicts(caches[0])
+    common = set(mine) & set(ref)
+    assert len(common) >= 2
+    assert {k: mine[k] for k in common} == {k: ref[k] for k in common}
+    stages = logs[1].meta["stages"]
+    assert (stages["worker_crashes"], stages["eval_timeouts"],
+            stages["quarantined"]) == (0, 0, 0)
+    assert logs[1].best().correct
+
+
+def _pool_batch(dev, **pool_kw):
+    """(pool, results, launches counted here) of a four-genome rmsnorm
+    batch, evaluated by two threads through a two-worker pool on the card,
+    timed with CUDA events."""
+    from repro_torch.core import ProfilingAgent, TestingAgent
+    from repro_torch.search import EvalCache, EvalWorkerPool, TieredEvaluator
+    space = registry.get_space("fused_add_rmsnorm")
+    space = dataclasses.replace(space, suite_shapes=space.suite_shapes[:1])
+    testing = TestingAgent(dtypes=(torch.bfloat16,))
+    tests = registry.suite_tests(space, testing)
+    base = space.baseline
+    variants = [base, dataclasses.replace(base, two_pass=False),
+                dataclasses.replace(base, use_rsqrt=True),
+                dataclasses.replace(base, row_threads=128)]
+    ev = TieredEvaluator()
+    before = ops.launch_counts()
+    with EvalWorkerPool(workers=2, on_stat=ev.bump, **pool_kw) as pool:
+        results = ev.evaluate_many(
+            space, variants, tests, testing=testing,
+            profiling=ProfilingAgent(reps=5, backend="cuda"),
+            cache=EvalCache(), workers=2, isolation="process", pool=pool)
+    after = ops.launch_counts()
+    return pool, results, {k: after[k] - before[k] for k in after}, ev
+
+
+def test_the_pool_keeps_one_task_on_the_card(dev):
+    """Two threads, two workers: the workers' task spans (host monotonic
+    clock, taken in the children) never overlap, and every launch they
+    made is counted in this process."""
+    pool, results, launched, _ = _pool_batch(dev)
+    assert all(r.passed for r in results)
+    spans = sorted(pool.spans, key=lambda s: s["start"])
+    assert len(spans) == 4 and len({s["pid"] for s in spans}) == 2
+    for a, b in zip(spans, spans[1:]):
+        assert a["end"] <= b["start"], (a, b)
+    total = sum(s["launches"].get("fused_add_rmsnorm", 0) for s in spans)
+    assert total > 0 and launched["fused_add_rmsnorm"] == total
+
+
+def test_a_crashed_genome_is_never_launched_here(dev):
+    """A genome that kills its worker twice is quarantined with the cost
+    model's analytic profile, though the search times on the card: this
+    process launches nothing for it (its counts grow by the workers'
+    launches alone)."""
+    from repro_torch.core import ProfilingAgent, TestingAgent
+    from repro_torch.reliability import Fault, SearchChaosInjector
+    from repro_torch.search import EvalCache
+    space = registry.get_space("fused_add_rmsnorm")
+    space = dataclasses.replace(space, suite_shapes=space.suite_shapes[:1])
+    tests = registry.suite_tests(space, TestingAgent(dtypes=(torch.bfloat16,)))
+    victim = dataclasses.replace(space.baseline, row_threads=128)
+    digest = EvalCache().key(space.name, victim, tests,
+                             launch_key=space.launch_key)[1]
+    chaos = SearchChaosInjector([Fault("kill_worker", digest=digest,
+                                       times=2)])
+    pool, results, launched, ev = _pool_batch(dev, chaos=chaos,
+                                              quarantine_after=2)
+    crashed = results[3]
+    assert crashed.failed_infra and ev.stats.quarantined == 1
+    assert crashed.profile == ProfilingAgent(
+        reps=5, backend="analytic").profile(space, victim, tests)
+    assert [r.passed for r in results[:3]] == [True] * 3
+    total = sum(s["launches"].get("fused_add_rmsnorm", 0)
+                for s in pool.spans)
+    assert launched["fused_add_rmsnorm"] == total
+
+
+def test_a_worker_that_raised_is_replaced_on_the_card(dev):
+    """An evaluation that raises in a worker on the card retires it (its
+    context may hold a sticky error): the next task runs in a new
+    process."""
+    from repro_torch.core import ProfilingAgent, TestingAgent
+    from repro_torch.search import EvalWorkerPool
+    space = registry.get_space("silu_and_mul")
+    task = dict(kernel="no_such_kernel", suite_shapes=space.suite_shapes[:1],
+                variant=space.baseline, validate=True, tests_digest="x",
+                prior=None, frozen=None,
+                testing=TestingAgent(dtypes=(torch.bfloat16,)),
+                profiling=ProfilingAgent(reps=5, backend="cuda"),
+                config=dict(screen=True, smoke=True, share_oracle=True,
+                            dominate_factor=3.0))
+    with EvalWorkerPool(workers=1, quarantine_after=2) as pool:
+        assert not pool.submit(task, digest="bad").ok
+        assert pool.submit(dict(task, kernel=space.name),
+                           digest="good").ok
+    erred = {s["pid"] for s in pool.spans if s["status"] == "error"}
+    assert len(erred) == 2 and pool.spans[-1]["status"] == "ok"
+    assert pool.spans[-1]["pid"] not in erred
+
+
 # -- the captured decode step of the serving engine ---------------------------
 
 def _smoke(arch, dtype="float32"):

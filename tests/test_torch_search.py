@@ -43,8 +43,8 @@ from repro_torch.kernels.registry import (  # noqa: E402
     KernelSpace, Knob, TestCase, clear_suite_memos, get_space,
     oracle_outputs, suite_tests)
 from repro_torch.search import (  # noqa: E402
-    BeamSearch, EvalCache, Population, SearchOrchestrator, TieredEvaluator,
-    genome_key)
+    BeamSearch, EvalCache, EvalWorkerPool, Population, SearchOrchestrator,
+    TieredEvaluator, genome_key)
 from repro_torch.search import cache as cache_mod  # noqa: E402
 from repro_torch.search import evaluator as evaluator_mod  # noqa: E402
 
@@ -668,8 +668,10 @@ def test_evaluation_is_race_free():
 
 def test_evaluate_many_is_parallel_deterministic_and_dedups():
     space, tests = eval_space("toy_many")
-    variants = [ToyVariant(name=f"v{k}", block=k) for k in (16, 32, 16, 64,
-                                                            32)]
+    # equal genomes under other names: the first of each computes the
+    # entry, as in the serial run (its name seeds the analytic noise)
+    variants = [ToyVariant(name=f"v{i}", block=k)
+                for i, k in enumerate((16, 32, 16, 64, 32))]
     serial = TieredEvaluator().evaluate_many(
         space, variants, tests, testing=cpu_tester(),
         profiling=ProfilingAgent(), cache=EvalCache(), workers=1)
@@ -1001,11 +1003,11 @@ def test_entry_points_need_a_gpu_unless_told_cpu(monkeypatch):
         registry.make_inputs("silu_and_mul", {"batch": 2, "hidden": 8})
     SearchOrchestrator(device="cpu")
     ProfilingAgent(backend="analytic")
-    with pytest.raises(NotImplementedError, match="queue A"):
-        SearchOrchestrator(device="cpu", isolation="process")
-    with pytest.raises(NotImplementedError, match="queue A"):
-        SearchOrchestrator(device="cpu").search("silu_and_mul",
-                                                journal=object())
+    with pytest.raises(RuntimeError):
+        SearchOrchestrator(isolation="process")
+    with pytest.raises(RuntimeError):
+        EvalWorkerPool()
+    SearchOrchestrator(device="cpu", isolation="process")
 
 
 # ------------------------------------------------------ the H100 model
