@@ -72,9 +72,25 @@ Phases, each of which fails the run (non-zero exit) on any error:
    Every request must finish with 32 tokens, ``readbacks == steps ==
    graph_replays``, and each kernel's launch count must be what the path
    and the installed genome imply. The oversubscribed serve must preempt
-   at least once, keep the page pool's invariants, release every page,
-   and give the fully subscribed reintegrated serve's streams token for
-   token.
+   at least once, keep the page pool's invariants, release every page
+   but the prefix tree's (and none after ``clear_tree``), and give the
+   fully subscribed reintegrated serve's streams token for token.
+4b. Requests: qwen2-0.5b again (reintegrated genomes). Every other
+   request of phase 4's sampled (temperature 0.8, top-k 50, top-p 0.9,
+   its own seed) on the paged pool, the contiguous cache (which launches
+   ``flash_decode`` with the paged genome's flags and 64-row steps, so
+   that both layouts do the same arithmetic whatever the tuner picked)
+   and the oversubscribed pool: the sampled streams equal across the
+   three, the greedy requests' streams equal phase 4's,
+   two captures (the argmax step, then the draw's at the first sampled
+   admission), each graph's pool printed. The 16 shared-prefix prompts
+   (``launch.serve.shared_prefix_prompts``) with the radix tree and
+   without: equal streams, ``prefix_hit_tokens``, ``cow_copies`` and the
+   suffix prefills equal to ``SHARED_COUNTS``, and the ttft of each
+   request that hit beside its ttft without the tree. Phase 4's requests
+   with rid-derived priorities: reorders, and FCFS's streams. Each run
+   checks what phase 4 checks, launch counts included (suffix prefills
+   launch the norms and silu as whole prefills do).
 5. Reference: on the reduced qwen2 and h2o-danube configs in fp32, the
    port's logits (the h2o ones past the window and after the ring wraps)
    and greedy streams on the card agree with its plain versions on the
@@ -126,6 +142,16 @@ SERVE_H2O = dict(SERVE, arch="h2o-danube-1.8b", max_seq=8192,
                  max_prompt=2048, crossing=2)
 # 48 pages of 16 rows against 8 slots x 512 rows (256 pages): swap
 SERVE_OVER = dict(SERVE, num_pages=48, preemption="swap")
+# phase 4's requests, every other one sampled with its own seed
+SAMPLED = dict(temperature=0.8, top_k=50, top_p=0.9)
+# the shared-prefix workload (launch.serve.shared_prefix_prompts) at the
+# serve settings, with the tree and without it
+SERVE_SHARED = dict(SERVE, requests=16)
+# what its tree serves: they depend on the prompts, pages, slots, max_seq
+# and max_new only, not on the width (tests/test_torch_prefix_cache.py
+# holds them equal to the JAX engine's at the reduced width)
+SHARED_COUNTS = {"prefix_hit_tokens": 2192, "cow_copies": 1,
+                 "suffix_prefills": 15}
 
 
 def log(*args):
@@ -1110,76 +1136,132 @@ def phase_resume() -> bool:
     return ok
 
 
-def phase_serve(label: str, s: dict) -> tuple[bool, dict]:
-    """Serve ``s["requests"]`` greedy requests on ``s["arch"]`` at full
-    width (on an oversubscribed pool where ``s`` names ``num_pages``);
-    returns (ok, launch counts of the run, the streams)."""
+_PARAMS: dict = {}
+
+
+def serve_params(cfg, seed: int):
+    """Seeded full-width weights, made once per (arch, seed)."""
+    from repro_torch.models import registry
+    key = (cfg.name, seed)
+    if key not in _PARAMS:
+        t0 = time.perf_counter()
+        _PARAMS[key] = registry.init_params(cfg, seed=seed)
+        torch.cuda.synchronize()
+        log(f"  {cfg.name} full width ({cfg.n_layers} layers, d_model "
+            f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, d_ff "
+            f"{cfg.d_ff}, vocab {cfg.padded_vocab}, window {cfg.window}) "
+            f"{cfg.dtype}, seeded init {time.perf_counter() - t0:.1f} s")
+    return _PARAMS[key]
+
+
+def phase_serve(label: str, s: dict) -> tuple[bool, dict, list, dict]:
+    """Serve ``s["requests"]`` requests of ``s["max_new"]`` tokens on
+    ``s["arch"]`` at full width; returns (ok, launch counts of the run,
+    the streams, the metrics). ``s`` may name ``num_pages`` (an
+    oversubscribed pool), ``paged=False`` (the contiguous cache),
+    ``sampled`` (every other request sampled with ``SAMPLED`` and its own
+    seed), ``shared`` (the shared-prefix prompts), ``prefix_cache`` (off
+    when False), ``scheduler`` and ``priorities`` (``"rid"``: the JAX
+    benchmark's ``(rid * 5) % 3``)."""
     from repro_torch import configs
     from repro_torch.kernels import ops
-    from repro_torch.launch.serve import measure, prompts_for
-    from repro_torch.models import registry
+    from repro_torch.launch.serve import (measure, prompts_for,
+                                          shared_prefix_prompts)
+    from repro_torch.serving import SamplingParams
+    from repro_torch.serving.engine import WARMUP_STEPS
 
     cfg = configs.get(s["arch"])
-    t0 = time.perf_counter()
-    params = registry.init_params(cfg, seed=s["seed"])
-    torch.cuda.synchronize()
-    log(f"  {cfg.name} full width ({cfg.n_layers} layers, d_model "
-        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, d_ff "
-        f"{cfg.d_ff}, vocab {cfg.padded_vocab}, window {cfg.window}) "
-        f"{cfg.dtype}, seeded init {time.perf_counter() - t0:.1f} s")
-    prompts = prompts_for(cfg, s["requests"], s["min_prompt"],
-                          s["max_prompt"], s["seed"], crossing=s["crossing"])
+    params = serve_params(cfg, s["seed"])
+    if s.get("shared"):
+        prompts = shared_prefix_prompts(cfg, s["seed"])
+    else:
+        prompts = prompts_for(cfg, s["requests"], s["min_prompt"],
+                              s["max_prompt"], s["seed"],
+                              crossing=s["crossing"])
+    sampling = None
+    if s.get("sampled"):
+        sampling = [SamplingParams(**SAMPLED, seed=1000 + rid)
+                    if rid % 2 else None for rid in range(len(prompts))]
+    priorities = [(rid * 5) % 3 for rid in range(len(prompts))] \
+        if s.get("priorities") == "rid" else None
     m, outs = measure(params, cfg, prompts, max_new=s["max_new"],
                       slots=s["slots"], max_seq=s["max_seq"],
                       page_size=s["page_size"], device="cuda",
                       num_pages=s.get("num_pages"),
-                      preemption=s.get("preemption", "swap"))
-    steps, prefills = m["steps"], s["requests"]
+                      preemption=s.get("preemption", "swap"),
+                      paged=s.get("paged"),
+                      prefix_cache=s.get("prefix_cache", True),
+                      scheduler=s.get("scheduler", "fcfs"),
+                      sampling=sampling, priorities=priorities)
+    steps, prefills = m["steps"], len(prompts)
+    # decode passes: the replays, and the warm-ups of a capture made
+    # during the run (the draw's, at the first sampled admission)
+    decode = steps + m["capture_warmups"] - WARMUP_STEPS
     rms = ops.get_variant("fused_add_rmsnorm")
     # decode attention runs on the cache layout's kernel alone
     if m["paged"]:
         attn, layout = "paged_flash_decode", f"paged pool of " \
-            f"{m['num_pages']} pages of {s['page_size']}"
+            f"{m['num_pages']} pages of {s['page_size']}" \
+            f"{', radix tree' if m['prefix_cache'] else ''}"
     else:
         attn = "flash_decode"
-        layout = (f"contiguous ring of {cfg.window} rows a slot, "
-                  f"flash_decode {ops.get_variant(attn).describe()}")
+        layout = (f"contiguous cache of {m['max_seq']} rows a slot"
+                  if not cfg.window else
+                  f"contiguous ring of {cfg.window} rows a slot") + \
+            f", flash_decode {ops.get_variant(attn).describe()}"
     log(f"  {label}: fused_add_rmsnorm {rms.describe()}; silu_and_mul "
         f"{ops.get_variant('silu_and_mul').describe()}")
-    # a two-pass rmsnorm launches twice a call; the merge is not on the path
+    # every prefill (whole or suffix) and every decode pass launches the
+    # norms 2L+1 times (twice each for a two-pass rmsnorm) and silu L
+    # times; the merge is not on the path
     want = {"fused_add_rmsnorm": (2 if rms.two_pass else 1)
-            * (2 * cfg.n_layers + 1) * (steps + prefills),
-            "silu_and_mul": cfg.n_layers * (steps + prefills),
+            * (2 * cfg.n_layers + 1) * (decode + prefills),
+            "silu_and_mul": cfg.n_layers * (decode + prefills),
             "paged_flash_decode": 0, "flash_decode": 0,
             "merge_attn_states_lse": 0}
-    want[attn] = cfg.n_layers * steps
-    log(f"  {s['requests']} requests, prompt lengths {m['prompt_lens']}, "
-        f"max_new_tokens {s['max_new']}, slots {s['slots']}, max_seq "
-        f"{s['max_seq']}, {layout}")
+    want[attn] = cfg.n_layers * decode
+    log(f"  {len(prompts)} requests"
+        f"{', every other sampled ' + str(SAMPLED) if sampling else ''}, "
+        f"prompt lengths {m['prompt_lens']}, max_new_tokens {s['max_new']}, "
+        f"slots {s['slots']}, max_seq {s['max_seq']}, {layout}, scheduler "
+        f"{m['scheduler']} (reorders {m['sched_reorders']})")
     log(f"  tok_s={m['tok_s']:.1f} mean_ttft_s={m['ttft_s']:.4f} "
         f"steps={steps} readbacks={m['readbacks']} "
         f"prefill_buckets={m['prefill_buckets']} "
         f"peak_mem_GiB={m['peak_mem_gib']:.2f}")
+    captures = 2 if sampling else 1
     log(f"  captured decode step: capture_s={m['capture_s']:.3f} "
-        f"decode_captures={m['decode_captures']} "
+        f"decode_captures={m['decode_captures']} (expected {captures}) "
         f"graph_replays={m['graph_replays']} "
         f"mean_decode_step_ms={1e3 * m['decode_step_s']:.3f} "
         f"table_uploads={m['table_uploads']}")
+    log("  captures by step (seconds, graph pool MiB): " + ", ".join(
+        f"{k} {v['s']:.3f} s {v['pool_mib']:.1f} MiB"
+        for k, v in m["capture_by_step"].items()))
     ok = True
-    if m["graph_replays"] != steps or m["decode_captures"] != 1:
+    if m["graph_replays"] != steps or m["decode_captures"] != captures \
+            or m["sampling_step"] != bool(sampling):
         log(f"  FAIL graph_replays {m['graph_replays']} != steps {steps} "
-            f"or {m['decode_captures']} captures")
+            f"or {m['decode_captures']} captures, sampling step "
+            f"{m['sampling_step']}")
         ok = False
     if m["paged"]:
         log(f"  preemption {m['preemption']}: preemptions="
             f"{m['preemptions']} pages swapped out={m['swapped_out_pages']}"
             f" back in={m['swapped_in_pages']} pool_check="
-            f"{'ok' if m['pool_ok'] else m['pool_error']} all pages "
-            f"released={m['pool_released']}")
+            f"{'ok' if m['pool_ok'] else m['pool_error']} pages in use "
+            f"only the tree's ({m['tree_pages']}) and none after "
+            f"clear_tree={m['pool_released']}")
         ok &= m["pool_ok"] and m["pool_released"]
         if s.get("num_pages") and m["preemptions"] < 1:
             log("  FAIL the oversubscribed pool never preempted")
             ok = False
+    if m["prefix_cache"]:
+        log(f"  prefix cache: prefix_hit_tokens={m['prefix_hit_tokens']} "
+            f"of {m['prefix_query_tokens']}, suffix_prefills="
+            f"{m['suffix_prefills']}, cow_copies={m['cow_copies']}, "
+            f"tree_evictions={m['tree_evictions']}, tree_pages="
+            f"{m['tree_pages']}")
     for name, n in m["launches"].items():
         good = n == want[name]
         ok &= good
@@ -1194,7 +1276,148 @@ def phase_serve(label: str, s: dict) -> tuple[bool, dict]:
             log(f"  FAIL request {o.rid}: {o.finish_reason} "
                 f"{len(o.tokens)} tokens {o.error or ''}")
             ok = False
-    return ok, m["launches"], [o.tokens for o in outs]
+    return ok, m["launches"], [o.tokens for o in outs], m
+
+
+def same(what: str, a, b) -> bool:
+    """Log and return whether two lists of streams are equal."""
+    eq = a == b
+    diff = [i for i, (x, y) in enumerate(zip(a, b)) if x != y]
+    log(f"  {what}: {'equal' if eq else f'DIFFER at requests {diff}'}")
+    return eq
+
+
+def bf16_rule(what: str, cfg, params, prompts, want, got) -> bool:
+    """The rule the JAX goldens are held to: each stream of ``got`` may
+    leave ``want``'s only at a token where the full prefill's logits of
+    the two tokens are within the bf16 tolerance."""
+    from repro_torch.models import registry
+    tol, n, ok = TOL[torch.bfloat16], 0, True
+    for rid, (prompt, w, g) in enumerate(zip(prompts, want, got)):
+        diff = [i for i, (a, b) in enumerate(zip(w, g)) if a != b]
+        if not diff:
+            continue
+        n, i = n + 1, diff[0]
+        seq = np.concatenate([prompt, np.asarray(w[:i], prompt.dtype)])
+        logits, _ = registry.prefill(params, cfg, torch.tensor(
+            seq[None], dtype=torch.long, device="cuda"))
+        lg = logits[0].float()
+        a, b = float(lg[w[i]]), float(lg[g[i]])
+        good = abs(a - b) <= tol["atol"] + tol["rtol"] * abs(a)
+        ok &= good
+        log(f"  r{rid} first differs at token {i} ({w[i]} / {g[i]}): "
+            f"logits {a:.4f} / {b:.4f}, "
+            f"{'within' if good else 'OUTSIDE'} the bf16 tolerance")
+    log(f"  {what}: {n} of {len(want)} streams differ, "
+        f"{'each first at a bf16 near-tie' if ok else 'NOT at near-ties'}")
+    return ok
+
+
+def paged_twin(s: dict):
+    """The flash_decode genome that does the installed paged genome's
+    arithmetic on the contiguous cache of serve ``s``: the paged kernel's
+    64-row steps and its two flags. The tuner picks either decode genome's
+    flags by times within noise of each other, and ``use_reciprocal``
+    moves the last bit of the attention, so streams compared across the
+    two layouts would part at a near-tie when the flags differ. Returns
+    (the genome, whether both kernels plan the same splits there)."""
+    from repro_torch import configs
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import ops
+
+    cfg = configs.get(s["arch"])
+    paged = ops.get_variant("paged_flash_decode")
+    twin = fd.FlashDecodeVariant(name=f"{paged.name}~contiguous",
+                                 chunk=fd.PAGED_STEP,
+                                 use_reciprocal=paged.use_reciprocal,
+                                 mask_oob=paged.mask_oob)
+    shape = dict(batch=s["slots"], q_heads=cfg.n_heads,
+                 kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
+                 dtype=cfg.torch_dtype)
+    a = fd.launch_plan(twin, seq=s["max_seq"], **shape)
+    b = fd.paged_launch_plan(page=s["page_size"],
+                             n_pt=s["max_seq"] // s["page_size"], **shape)
+    same_plan = (a["splits"], a["steps_per_split"]) == \
+        (b["splits"], b["steps_per_split"])
+    log(f"  contiguous twin of paged {paged.describe()}: {twin.describe()}; "
+        f"splits {a['splits']} x {a['steps_per_split']} against paged "
+        f"{b['splits']} x {b['steps_per_split']} "
+        f"{'ok' if same_plan else 'DIFFER'}")
+    return twin, same_plan
+
+
+def phase_serve_requests(streams: list) -> tuple[dict, dict]:
+    """Phase 4's sampled, shared-prefix and priority serves of qwen2 (the
+    reintegrated genomes; the contiguous run's flash_decode is the paged
+    genome's twin, ``paged_twin``). ``streams``: the greedy serve's.
+    Returns (ok by name, launch counts by path)."""
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import shared_prefix_prompts
+
+    ok, counts, runs = {}, {}, {}
+    tuned_fd = ops.get_variant("flash_decode")
+    twin, twin_ok = paged_twin(SERVE)
+    for path, label, s in (
+            ("serve_sampled", "every other request sampled, paged pool",
+             dict(SERVE, sampled=True)),
+            ("serve_sampled_contiguous", "sampled, contiguous cache",
+             dict(SERVE, sampled=True, paged=False)),
+            ("serve_sampled_oversubscribed",
+             "sampled, oversubscribed pool", dict(SERVE_OVER, sampled=True)),
+            ("serve_shared_prefix", "shared prefixes, radix tree",
+             dict(SERVE_SHARED, shared=True)),
+            ("serve_shared_prefix_cold", "shared prefixes, no tree",
+             dict(SERVE_SHARED, shared=True, prefix_cache=False)),
+            ("serve_priority", "rid-derived priorities",
+             dict(SERVE, scheduler="priority", priorities="rid"))):
+        contiguous = s.get("paged") is False
+        if contiguous:
+            ops.set_variants(flash_decode=twin)
+        ok[path], counts[path], got, m = phase_serve(label, s)
+        if contiguous:
+            ops.set_variants(flash_decode=tuned_fd)
+        runs[path] = (got, m)
+    sampled = runs["serve_sampled"][0]
+    good = same("sampled streams, contiguous cache against paged pool",
+                runs["serve_sampled_contiguous"][0], sampled) and twin_ok
+    good &= same("sampled streams, oversubscribed pool against paged pool",
+                 runs["serve_sampled_oversubscribed"][0], sampled)
+    good &= same("greedy requests of the sampled serve against the greedy "
+                 "serve", sampled[::2], streams[::2])
+    ok["serve_sampled"] &= good
+    hot, mh = runs["serve_shared_prefix"]
+    cold, mc = runs["serve_shared_prefix_cold"]
+    # the suffix prefill sums in another order than the whole prompt's
+    # (other attention, other matrix shapes), so in bf16 a stream may
+    # leave the other at a near-tie, as the goldens may
+    cfg = configs.get(SERVE_SHARED["arch"])
+    good = same("shared-prefix streams with the tree against without",
+                hot, cold) or bf16_rule(
+        "shared-prefix streams with the tree against without", cfg,
+        serve_params(cfg, SERVE_SHARED["seed"]),
+        shared_prefix_prompts(cfg, SERVE_SHARED["seed"]), cold, hot)
+    for key, want in SHARED_COUNTS.items():
+        hit = mh[key] == want
+        good &= hit
+        log(f"  shared prefix {key}={mh[key]} (expected {want}) "
+            f"{'ok' if hit else 'WRONG'}")
+    hits = [i for i, h in enumerate(mh["hits"]) if h]
+    log("  ttft of the requests that hit (with the tree / without), ms: "
+        + ", ".join(f"r{i} {1e3 * mh['ttfts'][i]:.2f}/"
+                    f"{1e3 * mc['ttfts'][i]:.2f}" for i in hits))
+    log(f"  mean ttft of those requests: "
+        f"{1e3 * np.mean([mh['ttfts'][i] for i in hits]):.2f} ms with the "
+        f"tree, {1e3 * np.mean([mc['ttfts'][i] for i in hits]):.2f} ms "
+        f"without")
+    ok["serve_shared_prefix"] &= good
+    got, mp = runs["serve_priority"]
+    good = mp["sched_reorders"] > 0
+    log(f"  priority: sched_reorders={mp['sched_reorders']} "
+        f"{'ok' if good else 'WRONG (none)'}")
+    good &= same("priority streams against the FCFS serve", got, streams)
+    ok["serve_priority"] &= good
+    return ok, counts
 
 
 def time_serve(arch: str) -> dict:
@@ -1426,20 +1649,25 @@ def main() -> int:
         "reintegrated; h2o-danube-1.8b with the reintegrated")
     tuned = {n: ops.get_variant(n) for n in results}
     ops.set_variants(**{n: get_space(n).shipped for n in results})
-    ok["serve shipped"], shipped_counts, _ = phase_serve(
+    ok["serve shipped"], shipped_counts, _, _ = phase_serve(
         "shipped genomes", SERVE)
     ops.set_variants(**tuned)
-    ok["serve"], serve_counts, streams = phase_serve("reintegrated genomes",
-                                                     SERVE)
-    ok["serve h2o"], h2o_counts, _ = phase_serve("reintegrated genomes",
-                                                 SERVE_H2O)
-    ok["serve oversubscribed"], over_counts, over_streams = phase_serve(
+    ok["serve"], serve_counts, streams, _ = phase_serve(
+        "reintegrated genomes", SERVE)
+    ok["serve h2o"], h2o_counts, _, _ = phase_serve("reintegrated genomes",
+                                                    SERVE_H2O)
+    ok["serve oversubscribed"], over_counts, over_streams, _ = phase_serve(
         "reintegrated genomes, oversubscribed pool", SERVE_OVER)
-    same = over_streams == streams
-    ok["serve oversubscribed"] &= same
-    log(f"  oversubscribed streams against the fully subscribed serve: "
-        f"{'equal' if same else 'DIFFER'}")
+    ok["serve oversubscribed"] &= same(
+        "oversubscribed streams against the fully subscribed serve",
+        over_streams, streams)
     phase_s["serve"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    log("phase 4b: serve qwen2-0.5b with sampled, shared-prefix and "
+        "prioritized requests (reintegrated genomes)")
+    request_ok, request_counts = phase_serve_requests(streams)
+    ok.update(request_ok)
+    phase_s["serve requests"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     log("phase 5: reference on a small input")
     ok["reference"] = phase_reference()
@@ -1449,15 +1677,17 @@ def main() -> int:
                                       for k, v in phase_s.items()))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     for name, row in rows.items():
-        row["launches"] = (tune_counts[name] + process_counts[name]
-                           + serve_counts[name] + h2o_counts[name]
-                           + over_counts[name])
         row["launches_by_path"] = {"tune": tune_counts[name],
                                    "tune_process": process_counts[name],
                                    "serve_shipped": shipped_counts[name],
                                    "serve_reintegrated": serve_counts[name],
                                    "serve_h2o": h2o_counts[name],
-                                   "serve_oversubscribed": over_counts[name]}
+                                   "serve_oversubscribed": over_counts[name],
+                                   **{path: c[name] for path, c
+                                      in request_counts.items()}}
+        # the main path: every run but the shipped-genome serve
+        row["launches"] = sum(n for path, n in row["launches_by_path"]
+                              .items() if path != "serve_shipped")
     rows["merge_attn_states_lse"]["note"] = (
         "not on the serve path (the model inlines its merge); the tune "
         "phase (the agent loop) drives it")

@@ -15,7 +15,14 @@ window-row ring per slot, whose decode attention is the ``flash_decode``
 kernel. ``--max-seq`` defaults to 512, or twice the window.
 ``--num-pages`` below full subscription (slots * max_seq / page_size)
 oversubscribes the pool; ``--preemption swap|recompute`` says what
-happens to the requests it evicts.
+happens to the requests it evicts. The paged pool keeps the radix prefix
+cache unless ``--no-prefix-cache``. ``--temperature`` / ``--top-k`` /
+``--top-p`` / ``--sampling-seed`` sample every request (``--seed`` seeds
+the weights and prompts; ``--sampling-seed`` the draws, default each
+request's id). ``--scheduler fcfs|priority|sjf`` orders admission; the
+requests carry priorities ``rid % 3``, so ``priority`` reorders them:
+    PYTHONPATH=src python -m repro_torch.launch.serve --temperature 0.8 \
+        --top-k 50 --scheduler priority
 ``--crossing N`` gives N prompts a length just under the window (decoding
 carries them across it) and N a length past it (prefilled at exact
 length and laid out as the ring).
@@ -23,9 +30,11 @@ length and laid out as the ring).
 It prints one JSON line of serving metrics (tok/s, mean TTFT, the mean
 wall time of a decode step, steps, readbacks, kernel launches,
 preemptions and pages swapped, the decode step's captures and graph
-replays, and on the card the peak memory and the card's name and power
-limit). ``--profile`` adds, for the measured run, the device's busy share
-of the wall time, the host's ``cudaLaunchKernel`` and ``cudaGraphLaunch``
+replays, the scheduler's reorders, the prefix cache's hit tokens, suffix
+prefills and copy-on-write copies, and on the card the peak memory and
+the card's name and power limit). ``--profile`` adds, for the measured
+run, the device's busy share of the wall time, the host's
+``cudaLaunchKernel`` and ``cudaGraphLaunch``
 calls, each of the port's kernels by name with its launches and device
 time as the profiler saw them (kernels inside graph replays included
 where the profiler reports them), and the top operators by device time
@@ -48,7 +57,7 @@ from repro_torch import configs
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import registry
-from repro_torch.serving import LLMEngine
+from repro_torch.serving import LLMEngine, SamplingParams
 
 
 # the port's CUDA kernels by the name of their __global__ function
@@ -83,6 +92,27 @@ def prompts_for(cfg, n: int, lo: int, hi: int, seed: int, *,
             for m in lens]
 
 
+# the shared-prefix workload of the JAX package's serve benchmark: r0-r11
+# a page-aligned staircase over one 256-token base (64, 80, ..., 240), r12
+# a copy of r5 (a whole-prompt match: copy-on-write), r13-r15 the base cut
+# at a page boundary with a ragged tail of fresh tokens
+SHARED_PREFIX_STAIRS = [64 + 16 * i for i in range(12)]
+SHARED_PREFIX_TAILS = ((208, 5), (96, 9), (176, 3))
+
+
+def shared_prefix_prompts(cfg, seed: int) -> list:
+    """The 16 prompts of the shared-prefix workload, token ids from
+    ``seed`` (the same ids as the JAX benchmark's for the same vocab)."""
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, cfg.vocab, (256,), dtype=np.int32)
+    prompts = [base[:n].copy() for n in SHARED_PREFIX_STAIRS]
+    prompts.append(base[:144].copy())
+    for cut, extra in SHARED_PREFIX_TAILS:
+        tail = rng.integers(0, cfg.vocab, (extra,), dtype=np.int32)
+        prompts.append(np.concatenate([base[:cut], tail]))
+    return prompts
+
+
 def default_max_seq(cfg) -> int:
     """512 rows a slot, or twice the window of a sliding-window config."""
     return 2 * cfg.window if cfg.window else 512
@@ -112,22 +142,38 @@ def card() -> str:
         text=True, timeout=60).stdout.strip().splitlines()[0]
 
 
+def warm_up_prompts(cfg, page_size: int) -> tuple[list, list]:
+    """(prompts, sampling) of the warm-up wave: two short prompts, the
+    second sampled, and a third that starts with the first one's first
+    page (a prefix hit where the tree is on), so that the measured wave
+    meets no first use of the draw or the suffix prefill."""
+    warm = prompts_for(cfg, 2, page_size, 64, seed=99)
+    warm.append(np.concatenate([warm[0][:page_size], warm[1]]))
+    return warm, [None, SamplingParams(temperature=1.0), None]
+
+
 def measure(params, cfg, prompts, *, max_new: int, slots: int,
             max_seq: int, page_size: int, device, num_pages=None,
-            preemption: str = "swap",
+            preemption: str = "swap", paged=None, prefix_cache: bool = True,
+            scheduler: str = "fcfs", sampling=None, priorities=None,
             profile_rows: int = 0) -> tuple[dict, list]:
     """Warm up on an engine of its own, then serve ``prompts`` once on a
     fresh engine (on the card its decode step is captured when it is
     built), with every kernel's launch count set to 0 just before.
-    Returns (metrics, the ``RequestOutput`` list). ``profile_rows > 0``
-    runs the measured wave under ``torch.profiler`` and prints its top
-    operators."""
+    ``sampling`` is one ``SamplingParams`` or one per prompt (None:
+    greedy); ``priorities`` one int per prompt. Returns (metrics, the
+    ``RequestOutput`` list). The pool check runs at the end with the
+    tree's pages, then ``pool_released`` says whether every page in use
+    was the tree's and clearing the tree emptied the pool.
+    ``profile_rows > 0`` runs the measured wave under ``torch.profiler``
+    and prints its top operators."""
     dev = resolve_device(device)
     cuda = dev.type == "cuda"
     kw = dict(slots=slots, max_seq=max_seq, page_size=page_size, device=dev,
-              num_pages=num_pages, preemption=preemption)
+              num_pages=num_pages, preemption=preemption, paged=paged,
+              prefix_cache=prefix_cache, scheduler=scheduler)
     LLMEngine(params, cfg, **kw).generate(
-        prompts_for(cfg, 2, 16, 64, seed=99), max_new_tokens=4)
+        *warm_up_prompts(cfg, page_size), max_new_tokens=4)
     llm = LLMEngine(params, cfg, **kw)
     if cuda:
         torch.cuda.synchronize()
@@ -139,7 +185,8 @@ def measure(params, cfg, prompts, *, max_new: int, slots: int,
         else contextlib.nullcontext()
     with prof:
         t0 = time.perf_counter()
-        outs = llm.generate(prompts, max_new_tokens=max_new)
+        outs = llm.generate(prompts, sampling, max_new_tokens=max_new,
+                            priorities=priorities)
         if cuda:
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -157,21 +204,34 @@ def measure(params, cfg, prompts, *, max_new: int, slots: int,
            "decode_captures": st["decode_captures"],
            "graph_replays": st["graph_replays"],
            "capture_s": st["capture_s"],
+           "capture_warmups": st["capture_warmups"],
+           "capture_by_step": st["capture_by_step"],
+           "sampling_step": st["sampling_step"],
            "table_uploads": st["table_uploads"],
            "preemption": preemption, "preemptions": st["preemptions"],
            "swapped_out_pages": st["swapped_out_pages"],
            "swapped_in_pages": st["swapped_in_pages"],
+           "scheduler": st["scheduler"],
+           "sched_reorders": st["sched_reorders"],
+           "suffix_prefills": st["suffix_prefills"],
+           "ttfts": [o.ttft_s for o in outs],
+           "hits": [o.prefix_hit_tokens for o in outs],
            "launches": ops.launch_counts(),
            "all_done": all(o.finish_reason == "done" for o in outs)}
+    for key in ("prefix_cache", "prefix_hit_tokens", "prefix_query_tokens",
+                "cow_copies", "tree_evictions", "tree_pages"):
+        out[key] = st.get(key, 0)
     if st["paged"]:
-        pool = llm.engine.cm.pool
+        cm = llm.engine.cm
         try:
-            pool.check()
+            llm.engine.check_pool()
             out["pool_ok"] = True
         except AssertionError as e:
             out["pool_ok"] = False
             out["pool_error"] = str(e)
-        out["pool_released"] = pool.pages_in_use == 0
+        tree_only = cm.pool.pages_in_use == len(cm.pool.tree_pages())
+        cm.clear_tree()
+        out["pool_released"] = tree_only and cm.pool.pages_in_use == 0
     if cuda:
         out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
         out["card"] = card()
@@ -213,10 +273,15 @@ def run(args) -> dict:
     prompts = prompts_for(cfg, args.requests, args.min_prompt,
                           args.max_prompt, args.seed, crossing=args.crossing)
     max_seq = args.max_seq or default_max_seq(cfg)
+    sp = SamplingParams(temperature=args.temperature, top_k=args.top_k,
+                        top_p=args.top_p, seed=args.sampling_seed)
     out, _ = measure(params, cfg, prompts, max_new=args.max_new,
                      slots=args.slots, max_seq=max_seq,
                      page_size=args.page_size, device=dev,
                      num_pages=args.num_pages, preemption=args.preemption,
+                     prefix_cache=not args.no_prefix_cache,
+                     scheduler=args.scheduler, sampling=sp,
+                     priorities=[rid % 3 for rid in range(len(prompts))],
                      profile_rows=args.rows if args.profile else 0)
     return out
 
@@ -238,6 +303,21 @@ def main(argv=None) -> None:
     ap.add_argument("--preemption", default="swap",
                     choices=("swap", "recompute"),
                     help="what eviction does with a request's KV")
+    ap.add_argument("--no-prefix-cache", action="store_true",
+                    help="serve the paged pool without the radix tree")
+    ap.add_argument("--scheduler", default="fcfs",
+                    choices=("fcfs", "priority", "sjf"),
+                    help="admission order (requests carry priorities "
+                    "rid %% 3)")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="0 = greedy argmax (default); > 0 samples")
+    ap.add_argument("--top-k", type=int, default=0,
+                    help="keep the k highest logits (0 = all)")
+    ap.add_argument("--top-p", type=float, default=1.0,
+                    help="nucleus mass (1.0 = all)")
+    ap.add_argument("--sampling-seed", type=int, default=None,
+                    help="seed of every request's draws (default: its "
+                    "request id); --seed seeds weights and prompts")
     ap.add_argument("--min-prompt", type=int, default=16)
     ap.add_argument("--max-prompt", type=int, default=256)
     ap.add_argument("--max-new", type=int, default=32)

@@ -3,9 +3,9 @@
 Every layer calls the kernels through ``repro_torch.kernels.ops``, never a
 kernel module directly. Projections are plain matrix products; the
 prefill attention (causal, windowed where the config has a window), the
-rotary embedding and the decode-cache write are plain PyTorch, the
-attention and rope in fp32, as the JAX package computes them in jnp
-outside any Pallas kernel.
+suffix prefill's two-segment attention, the rotary embedding and the
+decode-cache write are plain PyTorch, the attention and rope in fp32, as
+the JAX package computes them in jnp outside any Pallas kernel.
 
 Shapes keep the JAX package's layout: activations ``[B, S, D]``, heads
 ``[B, S, H, dh]``, projection weights with an explicit head axis
@@ -153,6 +153,34 @@ def attention_block(p, x, cfg: ModelConfig, *, positions=None):
     k = rope(k, positions, cfg.rope_theta)
     o = flash_attention(q, k, v, window=cfg.window)
     return out_proj(p, o, x.dtype), (k, v)
+
+
+def prefix_attention(q, k_new, v_new, k_prefix, v_prefix, prefix_len: int):
+    """Suffix-prefill attention over a two-segment KV in fp32: cached
+    prefix rows, then the suffix's own keys and values.
+
+    q, k_new, v_new: ``[B, S, H*, dh]``, the suffix (right-padded to its
+    bucket); k_prefix, v_prefix: ``[B, P, Hkv, dh]``, prefix rows gathered
+    from the paged pool, of which only the first ``prefix_len`` are valid
+    (the rest is trap-page garbage, masked). Causality is over absolute
+    positions: suffix query i sits at ``prefix_len + i`` and sees the
+    valid prefix and the suffix keys ``<= i``."""
+    b, s, hq, dh = q.shape
+    hkv = k_new.shape[2]
+    g = hq // hkv
+    p_rows = k_prefix.shape[1]
+    k = torch.cat([k_prefix, k_new], 1).to(F32)
+    v = torch.cat([v_prefix, v_new], 1).to(F32)
+    qf = q.to(F32).reshape(b, s, hkv, g, dh) * dh ** -0.5
+    sc = torch.einsum("bqhgd,bkhd->bhgqk", qf, k)
+    kpos = torch.arange(p_rows + s, device=q.device)
+    qpos = prefix_len + torch.arange(s, device=q.device)
+    valid = (kpos < prefix_len) | (kpos >= p_rows)
+    pos_of_k = torch.where(kpos < p_rows, kpos, prefix_len + (kpos - p_rows))
+    mask = valid[None, :] & (pos_of_k[None, :] <= qpos[:, None])
+    sc = torch.where(mask, sc, MASKED)
+    o = torch.einsum("bhgqk,bkhd->bhgqd", torch.softmax(sc, -1), v)
+    return o.permute(0, 3, 1, 2, 4).reshape(b, s, hq, dh).to(q.dtype)
 
 
 def update_cache(cache_k, cache_v, k_new, v_new, pos) -> None:

@@ -1,6 +1,7 @@
 """Architecture registry, dense part: one API over the model families the
 port serves (so far the dense decoder of ``transformer.py``) and over
-both KV-cache layouts, the contiguous per-slot cache and the paged pool.
+both KV-cache layouts, the contiguous per-slot cache and the paged pool
+(with the radix prefix cache's suffix prefill and page copy).
 
 ``init_params`` is an entry point: it builds on ``cuda`` unless the
 caller passes ``device="cpu"``.
@@ -46,6 +47,21 @@ def paged_ok(cfg: ModelConfig) -> bool:
     so and there is no rolling window)."""
     return bool(getattr(module_for(cfg), "PAGED_OK", False)) \
         and not cfg.window
+
+
+def prefix_cache_ok(cfg: ModelConfig) -> bool:
+    """True when the arch can reuse radix-cached prefix pages: it serves
+    paged and implements ``prefill_suffix``."""
+    return paged_ok(cfg) and hasattr(module_for(cfg), "prefill_suffix")
+
+
+def prefill_suffix(params, cfg: ModelConfig, tokens, prefix, *,
+                   prefix_len: int, length=None):
+    """Prefill only a prompt's suffix against gathered prefix rows (the
+    radix-hit admission); see the family module."""
+    return module_for(cfg).prefill_suffix(params, cfg, tokens, prefix,
+                                          prefix_len=prefix_len,
+                                          length=length)
 
 
 def prefill(params, cfg: ModelConfig, prompt, *, length=None,
@@ -149,4 +165,12 @@ def write_pages(cfg: ModelConfig, pool, new, pages, page_size: int):
         rows = rows[:, :target]
         p[:, pages] = rows.reshape(rows.shape[0], n_pages, page_size,
                                    *rows.shape[2:]).to(p.dtype)
+    return pool
+
+
+def copy_pages(cfg: ModelConfig, pool, src: int, dst: int):
+    """Copy physical page ``src`` into ``dst`` on every leaf of the paged
+    pool, in place (copy-on-write)."""
+    for p in pool.values():
+        p[:, dst].copy_(p[:, src])
     return pool

@@ -1,7 +1,8 @@
-"""Dense decoder-only transformer (llama family): init, prefill and the
-decode step over either cache layout (the contiguous per-slot cache,
-a rolling ring for a sliding-window config, or the paged pool). The port
-of the JAX ``models/transformer.py``.
+"""Dense decoder-only transformer (llama family): init, prefill, the
+suffix prefill of a radix prefix hit, and the decode step over either
+cache layout (the contiguous per-slot cache, a rolling ring for a
+sliding-window config, or the paged pool). The port of the JAX
+``models/transformer.py``.
 
 Parameters are a plain dict. Where the JAX package stacks layer weights on
 a leading axis for ``lax.scan``, the port keeps a list with one dict per
@@ -182,6 +183,50 @@ def prefill(params, cfg: ModelConfig, tokens, *, length: int | None = None,
                                params["final_norm"], cfg.norm_eps)
     logits = L.unembed(normed[:, 0], params["lm_head"])
     return logits, {"k": ks, "v": vs}
+
+
+def prefill_suffix(params, cfg: ModelConfig, tokens, prefix, *,
+                   prefix_len: int, length: int | None = None):
+    """Prefill only the suffix of a prompt whose first ``prefix_len``
+    positions are already cached (a radix prefix hit).
+
+    ``tokens [1, S]``: the suffix, right-padded to its bucket. ``prefix``:
+    ``{"k", "v": [L, 1, P, Hkv, dh]}``, rows gathered from the paged pool
+    (``registry.read_pages``), valid up to ``prefix_len``. ``length``: the
+    true suffix length. Returns (logits ``[1, V_pad]`` at suffix position
+    ``length - 1``, the suffix's cache ``{"k", "v": [L, 1, S, Hkv, dh]}``
+    for the page scatter). Its norms and MLPs go through the kernels, as
+    a full prefill's do."""
+    if cfg.window:
+        raise ValueError("rolling-window caches do not serve from the "
+                         "paged pool, so they never suffix-prefill")
+    b, s = tokens.shape
+    hidden = L.embed_tokens(params["embed"], tokens).to(cfg.torch_dtype)
+    residual = torch.zeros_like(hidden)
+    positions = prefix_len + torch.arange(s, device=tokens.device) \
+        .expand(b, s)
+    cos, sin = L.rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+    ks, vs = [], []
+    for li, p in enumerate(params["layers"]):
+        normed, residual = L.add_rms_norm(hidden, residual, p["attn_norm"],
+                                          cfg.norm_eps)
+        q, k, v = L.qkv_proj(p["attn"], normed, cfg)
+        q = L.apply_rope(q, cos, sin)
+        k = L.apply_rope(k, cos, sin)
+        attn = L.prefix_attention(q, k, v, prefix["k"][li],
+                                  prefix["v"][li], prefix_len)
+        attn_out = L.out_proj(p["attn"], attn, normed.dtype)
+        normed, residual = L.add_rms_norm(attn_out, residual, p["mlp_norm"],
+                                          cfg.norm_eps)
+        hidden = L.mlp_block(p["mlp"], normed)
+        ks.append(k)
+        vs.append(v)
+    last = s if length is None else int(length)
+    normed, _ = L.add_rms_norm(hidden[:, last - 1:last],
+                               residual[:, last - 1:last],
+                               params["final_norm"], cfg.norm_eps)
+    logits = L.unembed(normed[:, 0], params["lm_head"])
+    return logits, {"k": torch.stack(ks), "v": torch.stack(vs)}
 
 
 def decode_step(params, cfg: ModelConfig, cache, token, pos):

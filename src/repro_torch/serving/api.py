@@ -1,15 +1,27 @@
 """Facade layer of the serving API: ``LLMEngine``.
 
-``generate(prompts)`` submits a batch, runs the engine to completion and
-returns one ``RequestOutput`` per prompt, in submission order. The engine
-(its slots and KV pool) is shared across calls, and request ids keep
-increasing, so one ``LLMEngine`` serves successive waves.
+Two entry points over the engine:
+
+    generate(prompts, sampling_params) -> list[RequestOutput]
+        Submit a batch, run it to completion, return one output per
+        prompt, in submission order.
+
+    stream(prompts, sampling_params) -> iterator[TokenEvent]
+        The same submission, but yields one event per token as the
+        engine's readbacks land: tokens of concurrent requests interleave,
+        and each event carries (rid, token, index, done).
+
+Both take one ``SamplingParams`` for the whole batch or one per prompt,
+and per-request ``max_new_tokens`` and ``priorities``. The engine (its
+slots, KV pool and prefix tree) is shared across calls, and request ids
+keep increasing, so one ``LLMEngine`` serves successive waves. Deadlines
+and ``abort`` are not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterable, Optional, Sequence, Union
+from typing import Iterable, Iterator, Optional, Sequence, Union
 
 import numpy as np
 
@@ -17,6 +29,20 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.serving.cache_manager import CacheConfig
 from repro_torch.serving.engine import Engine, Request
 from repro_torch.serving.sampling import SamplingParams
+
+
+@dataclasses.dataclass(frozen=True)
+class TokenEvent:
+    """One token of one request, in stream order. A request that ends
+    without a fresh token (rejected at submission) closes its stream with
+    a terminal sentinel: ``token=-1, done=True`` and its
+    ``finish_reason``."""
+
+    rid: int
+    token: int
+    index: int          # 0-based position within the request's output
+    done: bool          # True on the request's last event
+    finish_reason: Optional[str] = None  # set on the last event only
 
 
 @dataclasses.dataclass
@@ -29,6 +55,7 @@ class RequestOutput:
     tokens: list
     ttft_s: Optional[float] = None      # submit -> first token
     preemptions: int = 0                # times evicted and requeued
+    prefix_hit_tokens: int = 0          # prompt tokens served from the tree
     finish_reason: str = "done"
     error: Optional[str] = None
 
@@ -44,30 +71,29 @@ class LLMEngine:
     serves from the paged pool where the architecture can page and from
     the contiguous cache otherwise (a sliding-window config's ring);
     ``page_size`` / ``num_pages`` configure the pool (``num_pages=None``
-    fully subscribes; fewer pages oversubscribe it). ``preemption``
-    (``"swap"`` or ``"recompute"``, or a ``PreemptionPolicy``) says what
-    happens to a request evicted when the pool runs dry."""
+    fully subscribes; fewer pages oversubscribe it); ``prefix_cache``
+    turns the radix prefix cache on for the paged pool. ``scheduler`` is
+    ``"fcfs"``, ``"priority"`` or ``"sjf"`` (or a ``Scheduler``);
+    ``preemption`` ``"swap"`` or ``"recompute"`` (or a
+    ``PreemptionPolicy``); ``sampling`` the ``SamplingParams`` of prompts
+    given none (greedy when None)."""
 
     def __init__(self, params, cfg: ModelConfig, *, slots: int = 4,
-                 max_seq: int = 512, preemption="swap",
+                 max_seq: int = 512, scheduler="fcfs", preemption="swap",
                  paged: Optional[bool] = None, page_size: int = 16,
-                 num_pages: Optional[int] = None, device=None):
+                 num_pages: Optional[int] = None, prefix_cache: bool = True,
+                 sampling: Optional[SamplingParams] = None, device=None):
         self.cfg = cfg
         self.engine = Engine(
-            params, cfg, slots=slots, max_seq=max_seq, device=device,
-            preemption=preemption,
+            params, cfg, slots=slots, max_seq=max_seq, sampling=sampling,
+            scheduler=scheduler, preemption=preemption, device=device,
             cache_manager=CacheConfig(paged=paged, page_size=page_size,
-                                      num_pages=num_pages))
+                                      num_pages=num_pages,
+                                      prefix_cache=prefix_cache))
         self._next_rid = 0
 
-    def generate(self, prompts: Iterable,
-                 sampling_params: SamplingLike = None, *,
-                 max_new_tokens=16,
-                 max_steps: int = 10_000) -> list[RequestOutput]:
-        """Submit ``prompts``, run to completion, return their outputs in
-        submission order. ``sampling_params`` is one ``SamplingParams`` for
-        all prompts or one per prompt; ``max_new_tokens`` an int or one per
-        prompt."""
+    def _submit(self, prompts: Iterable, sampling_params: SamplingLike,
+                max_new_tokens, priorities) -> list[Request]:
         prompts = list(prompts)
         n = len(prompts)
         if isinstance(sampling_params, SamplingParams) \
@@ -75,30 +101,105 @@ class LLMEngine:
             sampling_params = [sampling_params] * n
         if isinstance(max_new_tokens, int):
             max_new_tokens = [max_new_tokens] * n
-        if len(sampling_params) != n or len(max_new_tokens) != n:
-            raise ValueError(f"{len(sampling_params)} sampling_params and "
-                             f"{len(max_new_tokens)} max_new_tokens for "
-                             f"{n} prompts")
+        priorities = list(priorities) if priorities is not None else [0] * n
+        for name, arg in (("sampling_params", sampling_params),
+                          ("max_new_tokens", max_new_tokens),
+                          ("priorities", priorities)):
+            if len(arg) != n:
+                raise ValueError(f"{len(arg)} {name} for {n} prompts")
         reqs = []
-        for prompt, sp, mnt in zip(prompts, sampling_params, max_new_tokens):
-            reqs.append(Request(rid=self._next_rid, prompt=np.asarray(prompt),
-                                max_new_tokens=int(mnt), sampling=sp))
+        for prompt, sp, mnt, prio in zip(prompts, sampling_params,
+                                         max_new_tokens, priorities):
+            req = Request(rid=self._next_rid, prompt=np.asarray(prompt),
+                          max_new_tokens=int(mnt), sampling=sp,
+                          priority=int(prio))
             self._next_rid += 1
-        for req in reqs:
             self.engine.submit(req)
+            reqs.append(req)
+        return reqs
+
+    def stream(self, prompts: Iterable, sampling_params: SamplingLike = None,
+               *, max_new_tokens=16, priorities=None,
+               max_steps: int = 10_000) -> Iterator[TokenEvent]:
+        """Submit ``prompts`` and yield ``TokenEvent``s as tokens land.
+
+        Events of concurrent requests interleave; per request they come in
+        stream order with ``done=True`` on the last one. The events of a
+        step come from its one readback, which the engine applies after
+        the next step's dispatch: an event trails its step by one step,
+        never more, and streaming adds no device sync. Raises
+        RuntimeError if requests are left unfinished after
+        ``max_steps``."""
+        reqs = self._submit(prompts, sampling_params, max_new_tokens,
+                            priorities)
+        emitted = {req.rid: 0 for req in reqs}
+        closed: set = set()
+
+        def new_events():
+            for req in reqs:
+                while emitted[req.rid] < len(req.out_tokens):
+                    i = emitted[req.rid]
+                    emitted[req.rid] += 1
+                    last = req.done \
+                        and emitted[req.rid] == len(req.out_tokens)
+                    if last:
+                        closed.add(req.rid)
+                    yield TokenEvent(
+                        rid=req.rid, token=req.out_tokens[i], index=i,
+                        done=last,
+                        finish_reason=req.finish_reason if last else None)
+                if req.done and req.rid not in closed:
+                    # the terminal sentinel: finished with no fresh token
+                    closed.add(req.rid)
+                    yield TokenEvent(rid=req.rid, token=-1,
+                                     index=len(req.out_tokens), done=True,
+                                     finish_reason=req.finish_reason)
+
+        steps = max_steps
+        while steps > 0 and self.engine.has_work():
+            if not self.engine.step():
+                break
+            steps -= 1
+            yield from new_events()
+        self.engine.flush()
+        yield from new_events()
+        self._check_done(reqs, max_steps)
+        self._release(reqs)
+
+    def generate(self, prompts: Iterable,
+                 sampling_params: SamplingLike = None, *,
+                 max_new_tokens=16, priorities=None,
+                 max_steps: int = 10_000) -> list[RequestOutput]:
+        """Submit ``prompts``, run to completion, return their outputs in
+        submission order. ``sampling_params`` is one ``SamplingParams`` for
+        all prompts or one per prompt; ``max_new_tokens`` and
+        ``priorities`` an int or one per prompt (priorities: a list).
+        Raises RuntimeError if requests are left unfinished after
+        ``max_steps``."""
+        reqs = self._submit(prompts, sampling_params, max_new_tokens,
+                            priorities)
         self.engine.run(max_steps=max_steps)
+        self._check_done(reqs, max_steps)
+        self._release(reqs)
+        return [RequestOutput(
+            rid=r.rid, prompt_len=len(r.prompt), tokens=list(r.out_tokens),
+            ttft_s=(r.t_first - r.t_submit) if r.t_first else None,
+            preemptions=r.preemptions, prefix_hit_tokens=r.prefix_hit_tokens,
+            finish_reason=r.finish_reason, error=r.error) for r in reqs]
+
+    @staticmethod
+    def _check_done(reqs, max_steps: int) -> None:
         stuck = [r.rid for r in reqs if not r.done]
         if stuck:
             raise RuntimeError(f"requests {stuck} did not finish within "
                                f"max_steps={max_steps}")
+
+    def _release(self, reqs) -> None:
+        """Drop this wave's requests from the engine's finished list (by
+        identity), so a long-lived facade keeps no prompt it served."""
         done = {id(r) for r in reqs}
         self.engine.finished = [r for r in self.engine.finished
                                 if id(r) not in done]
-        return [RequestOutput(
-            rid=r.rid, prompt_len=len(r.prompt), tokens=list(r.out_tokens),
-            ttft_s=(r.t_first - r.t_submit) if r.t_first else None,
-            preemptions=r.preemptions, finish_reason=r.finish_reason,
-            error=r.error) for r in reqs]
 
     def stats(self) -> dict:
         """The engine's counters."""

@@ -4,8 +4,8 @@
 A fixed pool of decode slots; requests join as slots free up. Each decode
 step is one pass of the model over every slot (``decode_step_paged`` on
 the paged pool or ``decode_step`` on the contiguous cache, then the
-greedy argmax and the stop conditions, all on the device) and ONE
-batched ``(token-or-minus-one, done)`` copy to the host. Step *k*'s copy
+token draw and the stop conditions, all on the device) and ONE batched
+``(token-or-minus-one, done)`` copy to the host. Step *k*'s copy
 goes into one of two pinned host buffers right after its dispatch and is
 read only after step *k+1* has been dispatched, so the host never waits
 on the step it just queued (``readbacks == steps``). Prefill admission
@@ -14,20 +14,48 @@ config prefills a prompt longer than its window at its exact length) and
 takes the logits at the true length, then writes the prompt's K/V into
 its pages or its slot.
 
+**Sampling.** Each request carries ``SamplingParams`` (the engine's
+``sampling=`` default when it has none). The step comes in two variants:
+the bare argmax, and the draw of ``sampling.sample_tokens`` over every
+slot with per-slot seed, temperature, top-k and top-p buffers (greedy
+rows still take the argmax, so a greedy stream is the same under either).
+The engine starts with the argmax step (or the draw, when its default
+samples) and switches to the draw for good at the first admission of a
+sampled request. Token *t* of a request draws noise that is a pure
+function of ``(seed, t)``, so its stream is the same across restarts,
+cache layouts and preemption.
+
+**Scheduling.** Admission order is a ``Scheduler`` (FCFS, priority or
+shortest job first; ``scheduler=`` takes a name or an instance).
+
+**The radix prefix cache** (paged pool, ``CacheConfig.prefix_cache``, on by
+default). Admission maps the longest cached page-aligned prefix of a
+prompt read-only into the slot's table and prefills only the rest against
+the cached rows (``transformer.prefill_suffix``); a prompt that matches
+whole first copies its last page to a private one (copy-on-write) and
+prefills that page again, so the decode step never writes a shared page.
+A prompt's full pages join the tree when it is prefilled, and a finished
+request's when it leaves; tree pages are evicted before any request is
+preempted. The page copy and the suffix prefill run eagerly, on the
+stream the next step replays on.
+
 **The captured step.** The step reads and writes a static carry: token,
-position, activity, emit count and budget per slot, the emit pair and,
-on the paged pool, a device page table ``[slots, pages_per_slot]``. These
+position, activity, emit count and budget per slot, the sampling buffers,
+the emit pair and, on the paged pool, a device page table ``[slots,
+pages_per_slot]``. These
 buffers are allocated once and only ever written in place (``copy_``,
 index assignment). ``_step_body`` is the whole step. On the CPU it runs
 eagerly; on the card it is captured once as a CUDA graph at construction,
 with every slot idle, and each step replays it: the counterpart of the
 JAX engine's one donated jitted program. The host copies its page table
-to the device table only when the table changed (``PagePool.version``),
-through pinned memory, queued before the replay on the same stream. The
-graph holds the genomes of the path's kernels installed at capture; a
-step that finds others installed (``ops.set_variants``) captures again
-first. A capture that fails raises: on the card the engine never runs the
-step eagerly. The kernels' launch counts are kept exact under replay
+to the device table only when the table changed (``PagePool.version``:
+allocation, release, shared mapping, copy-on-write), through pinned
+memory, queued before the replay on the same stream. The graph holds the
+step variant and the genomes of the path's kernels installed at capture;
+a step that finds another variant or other genomes (``ops.set_variants``)
+captures again first (``decode_captures`` counts every capture). A
+capture that fails raises: on the card the engine never runs the step
+eagerly. The kernels' launch counts are kept exact under replay
 (``ops.add_launch_counts``).
 
 Capture leaves no trace. Its warm-up passes run the real kernels (which
@@ -51,14 +79,14 @@ The host keeps an exact mirror of each slot's device position, emit count
 and activity: the stop conditions are deterministic, so the page
 allocator can back the next write without waiting for the readback.
 
-Not ported yet: sampling other than greedy (refused at submission), the
-prefix cache, chaos, deadlines, speculative decoding and tensor
-parallelism.
+Not ported yet: chaos, abort, deadlines and fault recovery, speculative
+decoding and tensor parallelism.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gc
 import time
 from typing import Optional
 
@@ -70,10 +98,11 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import registry
 from repro_torch.serving.cache_manager import make_cache_manager
-from repro_torch.serving.sampling import SamplingParams
-from repro_torch.serving.scheduler import FCFSScheduler, make_preemption
+from repro_torch.serving.sampling import SamplingParams, sample_tokens
+from repro_torch.serving.scheduler import make_preemption, make_scheduler
 
 I32 = torch.int32
+F32 = torch.float32
 WARMUP_STEPS = 2        # eager passes of the step body before a capture
 
 
@@ -84,13 +113,15 @@ class Request:
     rid: int
     prompt: np.ndarray                  # token ids [S]
     max_new_tokens: int = 16
-    sampling: Optional[SamplingParams] = None   # None -> greedy
+    sampling: Optional[SamplingParams] = None   # None -> engine default
+    priority: int = 0                   # read by PriorityScheduler
     out_tokens: list = dataclasses.field(default_factory=list)
     done: bool = False
     t_submit: float = 0.0               # set by Engine.submit
     t_first: float = 0.0                # wall time of the first token
     preemptions: int = 0                # times evicted and requeued
     arrival: int = -1                   # submission rank, set by submit
+    prefix_hit_tokens: int = 0          # prompt tokens served from the tree
     finish_reason: Optional[str] = None  # done | rejected
     error: Optional[str] = None
     # swap-preemption payload: (host KV pages, token, pos, emitted,
@@ -112,29 +143,34 @@ class Engine:
     the card) and one batched host readback per step."""
 
     def __init__(self, params, cfg: ModelConfig, *, slots: int = 4,
-                 max_seq: int = 512, scheduler=None, preemption=None,
-                 cache_manager=None, device=None):
+                 max_seq: int = 512,
+                 sampling: Optional[SamplingParams] = None, scheduler=None,
+                 preemption=None, cache_manager=None, device=None):
         """``params`` in the port's layout (``registry.init_params`` or
         ``convert.params_from_jax``) are moved to ``device`` (default
-        ``cuda``). ``scheduler`` is a ``Scheduler`` (FCFS when None);
-        ``preemption`` a policy name (``"swap"``, the default, or
-        ``"recompute"``) or a ``PreemptionPolicy``; ``cache_manager`` a
-        ``CacheConfig`` or a ready manager. On the card the decode step
-        is captured here, before any admission."""
+        ``cuda``). ``sampling`` is the ``SamplingParams`` of requests that
+        carry none (greedy when None). ``scheduler`` is a policy name
+        (``"fcfs"``, the default, ``"priority"`` or ``"sjf"``) or a
+        ``Scheduler``; ``preemption`` a policy name (``"swap"``, the
+        default, or ``"recompute"``) or a ``PreemptionPolicy``;
+        ``cache_manager`` a ``CacheConfig`` or a ready manager. On the
+        card the decode step is captured here, before any admission."""
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = registry.module_for(cfg).cast_params(params, cfg,
                                                            self.device)
         self.n_slots, self.max_seq = slots, max_seq
         self.slots = [_Slot() for _ in range(slots)]
-        self.scheduler = scheduler if scheduler is not None \
-            else FCFSScheduler()
+        self.default_sampling = sampling if sampling is not None \
+            else SamplingParams()
+        self.scheduler = make_scheduler(scheduler)
         self.preemption = make_preemption(preemption)
         self.preempt_mode = self.preemption.mode
         self.cm = make_cache_manager(cache_manager, cfg, slots, max_seq,
                                      self.device)
         self.cache = self.cm.init()
         self._pad_ok = registry.pad_prefill_ok(cfg)
+        self._prefix_cache = self.cm.prefix_cache
         self._cuda = self.device.type == "cuda"
         # the static carry: allocated once, written only in place
         self._token = self._zeros(I32)
@@ -142,6 +178,13 @@ class Engine:
         self._active = self._zeros(torch.bool)
         self._emitted = self._zeros(I32)
         self._max_new = self._zeros(I32)
+        # per-slot sampling parameters (seed as its uint32 value)
+        self._seed = self._zeros(torch.int64)
+        self._temp = self._zeros(F32)
+        self._topk = self._zeros(I32)
+        self._topp = torch.ones((slots,), dtype=F32, device=self.device)
+        # the argmax step until a sampled request is admitted
+        self._greedy_only = self.default_sampling.greedy
         self._emit = torch.zeros((2, slots), dtype=I32, device=self.device)
         self._table = None
         if self.cm.paged:
@@ -170,6 +213,8 @@ class Engine:
         self._ttfts: list[float] = []       # submit -> first token, s
         self._rejected = 0
         self._prefill_shapes: set[int] = set()
+        self._suffix_shapes: set[int] = set()
+        self._suffix_prefills = 0
         self._swapped_out_pages = 0
         self._swapped_in_pages = 0
         self._decode_s = 0.0                # wall time of steps that
@@ -181,6 +226,8 @@ class Engine:
         self._replays = 0
         self._warmups = 0
         self._capture_s = 0.0
+        # step variant -> the last capture's seconds and graph pool MiB
+        self._capture_by: dict = {}
         if self._cuda:
             self._capture()
 
@@ -205,13 +252,19 @@ class Engine:
     # -- the captured step ---------------------------------------------------
 
     def _step_body(self) -> None:
-        """One decode step over every slot, on the static carry (the
-        greedy body of the JAX engine's ``_make_step``): the model decode,
-        the argmax, the stop conditions, and the emit pair ``(token or -1
-        where the slot was idle, done)``."""
+        """One decode step over every slot, on the static carry (the body
+        of the JAX engine's ``_make_step``): the model decode, the argmax
+        (the argmax step) or ``sample_tokens`` with each slot's emit count
+        as the stream index (the sampling step), the stop conditions, and
+        the emit pair ``(token or -1 where the slot was idle, done)``."""
         logits, _ = self.cm.decode(self.params, self.cache, self._token,
                                    self._pos, self._table)
-        nxt = torch.argmax(logits[:, :self.cfg.vocab], dim=-1).to(I32)
+        logits = logits[:, :self.cfg.vocab]
+        if self._greedy_only:
+            nxt = torch.argmax(logits, dim=-1).to(I32)
+        else:
+            nxt = sample_tokens(logits, self._seed, self._emitted,
+                                self._temp, self._topk, self._topp)
         active = self._active
         new_pos = self._pos + 1
         new_emitted = self._emitted + active.to(I32)
@@ -225,7 +278,8 @@ class Engine:
         self._active.copy_(active & ~done)
 
     def _variant_key(self) -> tuple:
-        return tuple(ops.get_variant(name) for name in self._path)
+        return (self._greedy_only,) + tuple(ops.get_variant(name)
+                                            for name in self._path)
 
     def _warm_up(self) -> None:
         """``WARMUP_STEPS`` eager passes of the step body that leave the
@@ -239,11 +293,11 @@ class Engine:
         self._warmups += WARMUP_STEPS
 
     def _capture(self) -> None:
-        """Capture ``_step_body`` as a CUDA graph with the genomes now
-        installed, after a warm-up on a side stream (PyTorch's recipe).
-        The launches the capture recorded are taken off the kernels'
-        counts and added back on each replay. Raises when the step cannot
-        be captured."""
+        """Capture ``_step_body`` as a CUDA graph with the step variant
+        and the genomes now installed, after a warm-up on a side stream
+        (PyTorch's recipe). The launches the capture recorded are taken
+        off the kernels' counts and added back on each replay. Raises when
+        the step cannot be captured."""
         t0 = time.perf_counter()
         if self._graph is not None:
             # the last replay ends before its graph's memory is reused
@@ -255,6 +309,13 @@ class Engine:
         with torch.cuda.stream(side):
             self._warm_up()
         main.wait_stream(side)
+        # the capture empties the allocator's cache before it starts (as
+        # ``torch.cuda.graph`` does), so that what it reserves after is
+        # the graph's private pool: the step's temporaries
+        torch.cuda.synchronize(self.device)
+        gc.collect()
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(self.device)
         before = ops.launch_counts()
         graph = torch.cuda.CUDAGraph()
         try:
@@ -272,7 +333,11 @@ class Engine:
         self._graph_key = self._variant_key()
         self._captures += 1
         torch.cuda.synchronize(self.device)
-        self._capture_s += time.perf_counter() - t0
+        seconds = time.perf_counter() - t0
+        self._capture_s += seconds
+        self._capture_by["greedy" if self._greedy_only else "sampling"] = {
+            "s": seconds, "pool_mib":
+            (torch.cuda.memory_reserved(self.device) - reserved) / 2**20}
 
     def _sync_table(self) -> None:
         """Copy the host page table to the device table if it changed
@@ -310,14 +375,7 @@ class Engine:
     # -- request lifecycle ---------------------------------------------------
 
     def submit(self, req: Request) -> None:
-        """Queue ``req``; an inadmissible one finishes as ``rejected``.
-        A non-greedy request raises ValueError."""
-        sp = req.sampling if req.sampling is not None else SamplingParams()
-        if not sp.greedy:
-            raise ValueError(
-                f"request {req.rid}: temperature={sp.temperature} asks for "
-                "sampling, which this engine does not serve yet; only "
-                "greedy decoding (temperature 0) is ported")
+        """Queue ``req``; an inadmissible one finishes as ``rejected``."""
         req.t_submit = time.perf_counter()
         req.arrival = self._arrivals
         self._arrivals += 1
@@ -365,6 +423,22 @@ class Engine:
             b *= 2
         return min(b, cap)
 
+    def _suffix_bucket(self, s_len: int) -> int:
+        """Suffix-prefill bucket: pow2 like ``_bucket_len``, at least one
+        page, so the short suffixes of radix hits share one shape."""
+        b = self._bucket_len(s_len)
+        return max(self.cm.page_size, b if b is not None else s_len)
+
+    def _sampling_of(self, req: Request) -> SamplingParams:
+        """The request's sampling parameters. The first sampled one
+        switches the engine to the sampling step for good (captured at the
+        next dispatch on the card)."""
+        sp = req.sampling if req.sampling is not None \
+            else self.default_sampling
+        if self._greedy_only and not sp.greedy:
+            self._greedy_only = False
+        return sp
+
     def _admit(self) -> None:
         for i, slot in enumerate(self.slots):
             if slot.req is not None or not len(self.scheduler):
@@ -382,20 +456,27 @@ class Engine:
                 prompt = np.concatenate(
                     [prompt, np.asarray(req.out_tokens, prompt.dtype)])
             n = len(prompt)
-            b = self._bucket_len(n)
-            if not self.cm.alloc(i, n):
+            plan = None
+            if self._prefix_cache:
+                # maps the longest cached prefix read-only and reserves
+                # private pages for the rest
+                plan = self.cm.admit_prompt(i, prompt)
+                if plan is None:
+                    return         # head-of-line: admission waits for pages
+            elif not self.cm.alloc(i, n):
                 return             # head-of-line: admission waits for pages
             self.scheduler.pop()
             self._admissions += 1
-            pages = self.cm.prefill_pages(i, n, b)
-            if pages is not None:
-                pages = self._upload(pages)
-            if b is not None and b > n:
-                prompt = np.concatenate([prompt,
-                                         np.zeros(b - n, prompt.dtype)])
-            self._prefill_shapes.add(len(prompt))
-            tok0 = self._prefill(i, req, prompt, n, pages)
-            req.out_tokens.append(int(tok0))   # host sync: admission only
+            sp = self._sampling_of(req)
+            if plan is not None and plan["suffix_start"] > 0:
+                tok0 = self._prefill_suffix(i, req, prompt, plan, sp)
+                req.prefix_hit_tokens += plan["suffix_start"]
+            else:
+                tok0 = self._prefill(i, req, prompt, sp)
+            if self._prefix_cache:
+                # the prompt's full pages are written: publish them
+                self.cm.insert_prompt(i, prompt, n)
+            req.out_tokens.append(tok0)     # host sync: admission only
             self._tokens_out += 1
             if not req.t_first:
                 req.t_first = time.perf_counter()
@@ -415,23 +496,88 @@ class Engine:
             slot.demitted = len(req.out_tokens)
             slot.dactive = True
 
-    def _prefill(self, i: int, req: Request, prompt: np.ndarray, n: int,
-                 pages: Optional[torch.Tensor]) -> torch.Tensor:
-        """Prefill one prompt, write its pages (paged) or slot ``i``
-        (contiguous) and reset slot ``i``'s carry in place (the body of
-        the JAX engine's ``_make_admit``). Returns the first token (a
-        device scalar)."""
+    def _first_token(self, logits, req: Request, sp: SamplingParams) -> int:
+        """The token a prefill emits: the argmax, or the draw with index
+        ``len(req.out_tokens)`` (its place in the stream)."""
+        logits = logits[:, :self.cfg.vocab]
+        if sp.greedy:
+            return int(torch.argmax(logits[0]))
+        dev = logits.device
+        tok = sample_tokens(
+            logits, torch.tensor([sp.resolve_seed(req.rid) & 0xFFFFFFFF],
+                                 device=dev),
+            torch.tensor([len(req.out_tokens)], dtype=I32, device=dev),
+            torch.tensor([sp.temperature], dtype=F32, device=dev),
+            torch.tensor([sp.top_k], dtype=I32, device=dev),
+            torch.tensor([sp.top_p], dtype=F32, device=dev))
+        return int(tok[0])
+
+    def _set_slot(self, i: int, tok: int, pos: int, emitted: int,
+                  req: Request, sp: SamplingParams) -> None:
+        """Write slot ``i``'s carry in place: an active request at ``pos``
+        with ``emitted`` tokens out and its sampling parameters."""
+        self._token[i] = tok
+        self._pos[i] = pos
+        self._active[i] = True
+        self._emitted[i] = emitted
+        self._max_new[i] = req.max_new_tokens
+        self._seed[i] = sp.resolve_seed(req.rid) & 0xFFFFFFFF
+        self._temp[i] = sp.temperature
+        self._topk[i] = sp.top_k
+        self._topp[i] = sp.top_p
+
+    def _prefill(self, i: int, req: Request, prompt: np.ndarray,
+                 sp: SamplingParams) -> int:
+        """Prefill one prompt (padded to its bucket), write its pages
+        (paged) or slot ``i`` (contiguous) and reset slot ``i``'s carry in
+        place (the body of the JAX engine's ``_make_admit``). Returns the
+        first token."""
+        n = len(prompt)
+        b = self._bucket_len(n)
+        pages = self.cm.prefill_pages(i, n, b)
+        if pages is not None:
+            pages = self._upload(pages)
+        if b is not None and b > n:
+            prompt = np.concatenate([prompt, np.zeros(b - n, prompt.dtype)])
+        self._prefill_shapes.add(len(prompt))
         tokens = torch.tensor(prompt[None], dtype=torch.long,
                               device=self.device)
         logits, kv = registry.prefill(self.params, self.cfg, tokens,
                                       length=n if self._pad_ok else None)
         self.cache = self.cm.write(self.cache, kv, slot=i, pages=pages)
-        tok0 = torch.argmax(logits[0, :self.cfg.vocab]).to(I32)
-        self._token[i] = tok0
-        self._pos[i] = n
-        self._active[i] = True
-        self._emitted[i] = len(req.out_tokens) + 1
-        self._max_new[i] = req.max_new_tokens
+        tok0 = self._first_token(logits, req, sp)
+        self._set_slot(i, tok0, n, len(req.out_tokens) + 1, req, sp)
+        return tok0
+
+    def _prefill_suffix(self, i: int, req: Request, prompt: np.ndarray,
+                        plan: dict, sp: SamplingParams) -> int:
+        """A radix hit (the JAX engine's ``_dispatch_suffix`` and
+        ``_make_admit_suffix``): the copy-on-write page copy if the plan
+        has one, then the prefill of the suffix alone against the cached
+        prefix rows, written into the slot's private pages."""
+        n, ss = len(prompt), plan["suffix_start"]
+        s_len = n - ss
+        sb = self._suffix_bucket(s_len)
+        suffix = np.concatenate([prompt[ss:],
+                                 np.zeros(sb - s_len, prompt.dtype)])
+        if plan["cow"] is not None:
+            # the copy keeps the rows the suffix prefill does not rewrite
+            src, dst = plan["cow"]
+            registry.copy_pages(self.cfg, self.cache, src, dst)
+        self._suffix_shapes.add(sb)
+        self._suffix_prefills += 1
+        prefix = self.cm.read(self.cache,
+                              self._upload(self.cm.prefix_page_vec(i, ss)))
+        tokens = torch.tensor(suffix[None], dtype=torch.long,
+                              device=self.device)
+        logits, kv = registry.prefill_suffix(self.params, self.cfg, tokens,
+                                             prefix, prefix_len=ss,
+                                             length=s_len)
+        self.cache = self.cm.write(
+            self.cache, kv,
+            pages=self._upload(self.cm.suffix_pages(i, ss, n, sb)))
+        tok0 = self._first_token(logits, req, sp)
+        self._set_slot(i, tok0, n, len(req.out_tokens) + 1, req, sp)
         return tok0
 
     def _readmit_swapped(self, i: int, slot: _Slot, req: Request) -> bool:
@@ -444,15 +590,12 @@ class Engine:
             return False
         self.scheduler.pop()
         self._admissions += 1
+        sp = self._sampling_of(req)
         pages = self._upload(self.cm.pages_of(i))
         self.cache = self.cm.write(
             self.cache, {name: self._upload(t) for name, t in saved.items()},
             pages=pages)
-        self._token[i] = tok
-        self._pos[i] = dpos
-        self._active[i] = True
-        self._emitted[i] = demitted
-        self._max_new[i] = req.max_new_tokens
+        self._set_slot(i, tok, dpos, demitted, req, sp)
         self._swapped_in_pages += n_pages
         req.swap_state = None
         slot.req = req
@@ -462,9 +605,10 @@ class Engine:
         return True
 
     def _preempt(self, victim: int) -> None:
-        """Evict the occupant of ``victim`` and requeue it at the head:
-        ``swap`` first copies its pages and device state to the host,
-        ``recompute`` drops them. The in-flight step must be settled."""
+        """Evict the occupant of ``victim`` and requeue it with precedence:
+        ``swap`` first copies its pages (shared ones too) and device state
+        to the host, ``recompute`` drops them. The in-flight step must be
+        settled."""
         assert self._pending is None
         slot = self.slots[victim]
         req = slot.req
@@ -485,9 +629,9 @@ class Engine:
 
     def _ensure_pages(self) -> None:
         """Back every device-active slot's next write position. When the
-        pool is dry: settle the in-flight step (finished slots free
-        pages), then evict the preemption policy's victim until the write
-        fits."""
+        pool is dry (tree pages evicted first, by ``grow``): settle the
+        in-flight step (finished slots free pages), then evict the
+        preemption policy's victim until the write fits."""
         for i in range(self.n_slots):
             slot = self.slots[i]
             if slot.req is None or not slot.dactive:
@@ -548,7 +692,9 @@ class Engine:
                 if (s.demitted >= s.req.max_new_tokens
                         or s.dpos >= self.max_seq - 1):
                     s.dactive = False
-        self.cm.note_step()
+        self.cm.note_step({i: min(s.dpos, self.max_seq)
+                           for i, s in enumerate(self.slots)
+                           if s.req is not None})
         prev, self._pending = self._pending, (emit,
                                               [s.req for s in self.slots])
         if prev is not None:
@@ -579,10 +725,30 @@ class Engine:
             if fin[i]:
                 self._finish(req, "done")
                 if self.slots[i].req is req:
+                    if self._prefix_cache:
+                        # publish the sequence's full pages before freeing
+                        # them; the last token's row was never written
+                        prompt = np.asarray(req.prompt)
+                        toks = np.concatenate(
+                            [prompt,
+                             np.asarray(req.out_tokens, prompt.dtype)])
+                        self.cm.insert_prompt(i, toks, len(toks) - 1)
                     # later dispatches route this slot's idle writes to
                     # the trap page; its pages are safe to reuse
                     self.slots[i].req = None
                     self.cm.evict(i)
+
+    def flush(self) -> None:
+        """Settle the in-flight readback (the streaming facade calls
+        this when it stops stepping)."""
+        self._drain()
+
+    def check_pool(self) -> None:
+        """``PagePool.check()`` with every device-active slot's next write
+        position: no decode write may land in a shared page."""
+        if self.cm.paged:
+            self.cm.pool.check({i: s.dpos for i, s in enumerate(self.slots)
+                                if s.req is not None and s.dactive})
 
     def run(self, max_steps: int = 10_000) -> list:
         """Step until no work is left (or ``max_steps``); returns the
@@ -600,13 +766,17 @@ class Engine:
 
     def stats(self) -> dict:
         """Decode steps, readbacks, prefill buckets, throughput, time to
-        first token, the captured step's counters, preemption, scheduler
-        and pool counters."""
+        first token, the captured step's counters, preemption, scheduler,
+        pool and prefix-cache counters."""
         out = {
             "steps": self._steps,
             "readbacks": self._readbacks,
-            "prefill_compiles": len(self._prefill_shapes),
+            "prefill_compiles": len(self._prefill_shapes)
+            + len(self._suffix_shapes),
             "prefill_shapes": sorted(self._prefill_shapes),
+            "suffix_shapes": sorted(self._suffix_shapes),
+            "suffix_prefills": self._suffix_prefills,
+            "sampling_step": not self._greedy_only,
             "pad_prefill": self._pad_ok,
             "slots": self.n_slots,
             "tokens": self._tokens_out,
@@ -621,6 +791,7 @@ class Engine:
             "graph_replays": self._replays,
             "capture_warmups": self._warmups,
             "capture_s": self._capture_s,
+            "capture_by_step": dict(self._capture_by),
             "table_uploads": self._table_uploads,
             "preemptions": self.preemptions,
             "swapped_out_pages": self._swapped_out_pages,

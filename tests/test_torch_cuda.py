@@ -1081,6 +1081,9 @@ def test_oversubscribed_swap_equals_full_subscription_on_the_card(dev,
     assert st["preemptions"] >= 1 and st["swapped_in_pages"] > 0
     assert over == full
     assert st["graph_replays"] == st["readbacks"] == st["steps"]
+    # every page left is the prefix tree's, and clearing it empties the pool
+    assert eng.cm.pool.pages_in_use == len(eng.cm.pool.tree_pages())
+    eng.cm.clear_tree()
     assert eng.cm.pool.pages_in_use == 0
 
 
@@ -1095,3 +1098,130 @@ def test_capture_raises_instead_of_running_eagerly(dev, monkeypatch):
     with pytest.raises(RuntimeError, match="could not be captured.*"
                        "counters must be allocated"):
         Engine(params, cfg, device=dev, slots=3, max_seq=256)
+
+
+# -- sampling and the prefix cache on the card --------------------------------
+
+def test_the_captured_draw_equals_the_eager_draw(dev):
+    """``sample_tokens`` replayed from a CUDA graph, with new logits,
+    seeds and stream indices copied into its inputs, gives the eager
+    draw's tokens on the same inputs; its noise bits are the CPU's."""
+    from repro_torch.serving import sampling
+    b, vocab = 8, 151936
+
+    def inputs(seed):
+        r = np.random.default_rng(seed)
+        logits = torch.tensor(r.standard_normal((b, vocab)) * 3,
+                              dtype=torch.float32).to(dev, torch.bfloat16)
+        return (logits, torch.tensor(r.integers(0, 2**32, b), device=dev),
+                torch.tensor(r.integers(0, 64, b), dtype=torch.int32,
+                             device=dev))
+
+    temp = torch.tensor([0.0, 0.8, 1.0, 0.5, 0.8, 2.0, 0.0, 1.3],
+                        device=dev)
+    topk = torch.tensor([0, 50, 0, 1, 20, 0, 5, 50], dtype=torch.int32,
+                        device=dev)
+    topp = torch.tensor([1.0, 0.9, 0.95, 1.0, 1.0, 0.5, 0.9, 1.0],
+                        device=dev)
+    static = [t.clone() for t in inputs(1)]
+    args = lambda xs: (xs[0], xs[1], xs[2], temp, topk, topp)  # noqa: E731
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        sampling.sample_tokens(*args(static))
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = sampling.sample_tokens(*args(static))
+    for seed in range(2, 6):
+        new = inputs(seed)
+        for buf, x in zip(static, new):
+            buf.copy_(x)
+        graph.replay()
+        want = sampling.sample_tokens(*args(new))
+        torch.cuda.synchronize()
+        assert torch.equal(out, want), seed
+        greedy = (temp == 0) | (topk == 1)
+        assert torch.equal(out[greedy],
+                           torch.argmax(new[0], -1).to(torch.int32)[greedy])
+    bits = sampling.threefry_bits(static[1], static[2], 1000)
+    assert torch.equal(bits.cpu(), sampling.threefry_bits(
+        static[1].cpu(), static[2].cpu(), 1000))
+
+
+def _eager_on_the_card(eng):
+    """Make a card engine run its step body eagerly instead of replaying
+    a graph (the counterpart a captured step is held against)."""
+    import types
+
+    def no_capture():
+        eng._graph = types.SimpleNamespace(replay=eng._step_body)
+        eng._graph_key = eng._variant_key()
+        eng._graph_delta = {}
+    eng._capture = no_capture
+    no_capture()
+    return eng
+
+
+@pytest.mark.parametrize("paged", [True, False])
+def test_a_captured_mixed_batch_equals_the_eager_step(dev, paged):
+    """Greedy and sampled requests in one batch: the engine replaying its
+    captured steps (the argmax graph, then the draw's) gives the streams
+    of the same engine stepping eagerly on the card."""
+    from repro_torch.serving import CacheConfig, Engine, Request
+    from repro_torch.serving import SamplingParams
+    cfg, params = _smoke("qwen2-0.5b")
+    lens = [5, 40, 17, 60, 9, 33]
+    runs = []
+    for eager in (False, True):
+        eng = Engine(params, cfg, device=dev, slots=3, max_seq=256,
+                     cache_manager=CacheConfig(paged=paged))
+        if eager:
+            _eager_on_the_card(eng)
+        rng = np.random.default_rng(5)
+        for rid, n in enumerate(lens):
+            sp = SamplingParams(temperature=0.8, top_k=50, top_p=0.9,
+                                seed=rid) if rid % 2 else None
+            eng.submit(Request(rid=rid, prompt=rng.integers(0, cfg.vocab, n),
+                               max_new_tokens=12, sampling=sp))
+        eng.run()
+        runs.append(({r.rid: list(r.out_tokens) for r in eng.finished},
+                     eng.stats()))
+    (captured, st), (eager, _) = runs
+    assert captured == eager
+    assert st["decode_captures"] == 2 and st["sampling_step"]
+    assert st["graph_replays"] == st["readbacks"] == st["steps"]
+
+
+def test_copy_on_write_then_replay_leaves_the_shared_page(dev):
+    """A prompt that matches a cached one whole maps the first page shared
+    and copies the last (copy-on-write); the replays that follow never
+    write the shared pages, and the streams equal the run without the
+    tree."""
+    from repro_torch.serving import CacheConfig, Engine, Request
+    cfg, params = _smoke("qwen2-0.5b")
+    base = np.random.default_rng(7).integers(0, cfg.vocab, 32)
+    streams = []
+    for tree in (True, False):
+        eng = Engine(params, cfg, device=dev, slots=2, max_seq=64,
+                     cache_manager=CacheConfig(page_size=16,
+                                               prefix_cache=tree))
+        eng.submit(Request(rid=0, prompt=base, max_new_tokens=20))
+        assert eng.step()
+        if tree:
+            shared = sorted(eng.cm.pool.tree_pages())
+            assert len(shared) == 2
+            before = {n: p[:, shared].clone() for n, p in eng.cache.items()}
+        eng.submit(Request(rid=1, prompt=base.copy(), max_new_tokens=20))
+        while eng.has_work() and eng.step():
+            eng.check_pool()
+        eng.run()
+        torch.cuda.synchronize()
+        st = eng.stats()
+        if tree:
+            assert st["cow_copies"] == 1 and st["suffix_prefills"] == 1
+            for n, p in eng.cache.items():
+                assert torch.equal(p[:, shared], before[n]), n
+        assert st["graph_replays"] == st["steps"]
+        streams.append({r.rid: list(r.out_tokens) for r in eng.finished})
+    assert streams[0] == streams[1] and streams[0][0] == streams[0][1]

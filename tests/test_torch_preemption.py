@@ -3,8 +3,8 @@ serving goldens, for the PyTorch port on the CPU at the reduced
 qwen2-0.5b config.
 
 * The three oversubscribed settings of ``tests/test_serving.py`` (swap,
-  forced round trips, recompute) go through the JAX ``Engine`` (prefix
-  cache off: the port has none) and the port's ``Engine(device="cpu")``
+  forced round trips, recompute) go through the JAX ``Engine`` and the
+  port's ``Engine(device="cpu")``, both with the prefix cache off,
   on the same fp32 weights (JAX ``PRNGKey(0)``, through
   ``convert.params_from_jax``). Streams, ``steps``, ``readbacks``,
   ``preemptions`` and ``prefill_compiles`` are equal, ``PagePool.check()``
@@ -106,7 +106,8 @@ def jax_runs(fp32):
 def _carry(eng):
     return {"token": eng._token, "pos": eng._pos, "active": eng._active,
             "emitted": eng._emitted, "max_new": eng._max_new,
-            "emit": eng._emit, "table": eng._table,
+            "emit": eng._emit, "table": eng._table, "seed": eng._seed,
+            "temp": eng._temp, "topk": eng._topk, "topp": eng._topp,
             **{f"cache_{k}": v for k, v in eng.cache.items()}}
 
 
@@ -126,7 +127,8 @@ def port_runs(fp32):
             eng = Engine(params, cfg, slots=3, max_seq=64, device="cpu",
                          preemption=s["preemption"],
                          cache_manager=CacheConfig(page_size=16,
-                                                   num_pages=s["num_pages"]))
+                                                   num_pages=s["num_pages"],
+                                                   prefix_cache=False))
             ptrs0 = {k: v.data_ptr() for k, v in _carry(eng).items()}
             dispatches = []
             body = eng._step_body

@@ -7,7 +7,8 @@ the CPU at the reduced qwen2-0.5b config.
   pool rows it writes, match JAX in fp32 and in bf16.
 * The page allocator makes the same tables as the JAX one.
 * The whole slice: the JAX ``LLMEngine(prefix_cache=False)`` and the
-  port's ``LLMEngine(device="cpu")`` on the same prompts. At fp32 the
+  port's ``LLMEngine(device="cpu", prefix_cache=False)`` on the same
+  prompts. At fp32 the
   greedy streams, ``steps``, ``readbacks`` and the prefill buckets are
   equal; at bf16 the streams are equal up to any step where the JAX
   top-2 logit margin is within the bf16 tolerance.
@@ -147,7 +148,7 @@ def _serve_both(dtype):
                         prefix_cache=False)
     jouts = jllm.generate(prompts, max_new_tokens=max_new)
     tllm = LLMEngine(convert.params_from_jax(tree, cfg, "cpu"), cfg,
-                     slots=4, max_seq=128, device="cpu")
+                     slots=4, max_seq=128, device="cpu", prefix_cache=False)
     touts = tllm.generate(prompts, max_new_tokens=max_new)
     return jcfg, jparams, prompts, jllm.stats(), jouts, tllm.stats(), touts
 
@@ -183,11 +184,18 @@ def test_serving_slice_bf16_agrees_with_jax():
 
 
 def test_engine_refuses_sampling_and_rejects_what_cannot_fit():
+    """Sampling parameters that make no draw are refused where they are
+    made; a valid sampled request is served like a greedy one."""
     _, cfg, _, tree = setup("float32")
     llm = LLMEngine(convert.params_from_jax(tree, cfg, "cpu"), cfg,
                     slots=2, max_seq=32, device="cpu")
-    with pytest.raises(ValueError, match="greedy"):
-        llm.generate([np.arange(4)], SamplingParams(temperature=0.7))
+    for bad in (dict(temperature=-0.7), dict(top_k=-1), dict(top_p=0.0)):
+        with pytest.raises(ValueError):
+            SamplingParams(**bad)
+    sampled = llm.generate([np.arange(4)], SamplingParams(temperature=0.7),
+                           max_new_tokens=3)
+    assert sampled[0].finish_reason == "done"
+    assert len(sampled[0].tokens) == 3
     outs = llm.generate([np.arange(40) % cfg.vocab, np.arange(5)],
                         max_new_tokens=3)
     assert outs[0].finish_reason == "rejected" and outs[0].tokens == []
@@ -209,7 +217,9 @@ def _serve_args(**kw):
     args = dict(arch=ARCH, smoke=True, device="cpu", requests=5, slots=2,
                 max_seq=64, page_size=16, num_pages=None, preemption="swap",
                 min_prompt=3, max_prompt=30, max_new=4, crossing=0, seed=0,
-                profile=False, rows=0)
+                profile=False, rows=0, no_prefix_cache=False,
+                scheduler="fcfs", temperature=0.0, top_k=0, top_p=1.0,
+                sampling_seed=None)
     return argparse.Namespace(**{**args, **kw})
 
 
