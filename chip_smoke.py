@@ -91,6 +91,29 @@ Phases, each of which fails the run (non-zero exit) on any error:
    with rid-derived priorities: reorders, and FCFS's streams. Each run
    checks what phase 4 checks, launch counts included (suffix prefills
    launch the norms and silu as whole prefills do).
+4c. Lifecycle, chaos and speculative decoding: qwen2-0.5b again
+   (reintegrated genomes). Phase 4's requests plus an empty prompt and
+   one of max_seq tokens on the oversubscribed pool under a step-indexed
+   chaos plan (``chaos_plan``: two aborts, a device fault on slot 1, a
+   4-step hold of 5 pages, a corrupt readback on slot 2): the plan fires
+   whole, ``aborted`` / ``rejected`` / ``failed`` / ``recoveries`` and the
+   prefills equal ``CHAOS_COUNTS`` (the JAX engine's at these settings;
+   ``tests/test_torch_chaos.py`` holds the port's CPU run to them), the
+   pool check holds after every step
+   and every page but the tree's is released at the end, survivors'
+   streams equal phase 4's oversubscribed ones and the others are their
+   prefixes. A deadline drill: a stall longer than one request's
+   deadline, which finishes as ``deadline``. Then phase 4's requests
+   decoded speculatively, with the n-gram drafter (k 4), with the model
+   drafting for itself (k 3; its contiguous ``flash_decode`` takes the
+   paged genome's twin) and with the self-draft on the oversubscribed
+   pool: streams equal phase 4's, one captured spec step, ``readbacks ==
+   steps == graph_replays``, and each run's spec numbers (capture time
+   and graph pool, accepted tokens a step, draft tokens, acceptance, the
+   step's wall time, tok_s) beside phase 4's. Each run checks what phase
+   4 checks, launch counts included (a spec step runs the target k + 1
+   times and, for the draft model, the draft k + 1 times; every
+   admission's prefill runs the draft's prefill too).
 5. Reference: on the reduced qwen2 and h2o-danube configs in fp32, the
    port's logits (the h2o ones past the window and after the ring wraps)
    and greedy streams on the card agree with its plain versions on the
@@ -152,6 +175,13 @@ SERVE_SHARED = dict(SERVE, requests=16)
 # holds them equal to the JAX engine's at the reduced width)
 SHARED_COUNTS = {"prefix_hit_tokens": 2192, "cow_copies": 1,
                  "suffix_prefills": 15}
+# the chaos serve's outcomes: they depend on the prompts' lengths, pages,
+# slots, max_seq, max_new and the plan only: the JAX engine's at the
+# reduced width (tests/test_torch_chaos.py holds the port's CPU run to them)
+CHAOS_COUNTS = {"aborted": 2, "rejected": 2, "failed": 2, "recoveries": 1,
+                "prefills": 16}
+# the deadline drill: a stall at step 3 longer than request 1's deadline
+DEADLINE_STALL_S, DEADLINE_S = 0.5, 0.2
 
 
 def log(*args):
@@ -1168,7 +1198,6 @@ def phase_serve(label: str, s: dict) -> tuple[bool, dict, list, dict]:
     from repro_torch.launch.serve import (measure, prompts_for,
                                           shared_prefix_prompts)
     from repro_torch.serving import SamplingParams
-    from repro_torch.serving.engine import WARMUP_STEPS
 
     cfg = configs.get(s["arch"])
     params = serve_params(cfg, s["seed"])
@@ -1193,33 +1222,19 @@ def phase_serve(label: str, s: dict) -> tuple[bool, dict, list, dict]:
                       prefix_cache=s.get("prefix_cache", True),
                       scheduler=s.get("scheduler", "fcfs"),
                       sampling=sampling, priorities=priorities)
-    steps, prefills = m["steps"], len(prompts)
-    # decode passes: the replays, and the warm-ups of a capture made
-    # during the run (the draw's, at the first sampled admission)
-    decode = steps + m["capture_warmups"] - WARMUP_STEPS
+    steps = m["steps"]
     rms = ops.get_variant("fused_add_rmsnorm")
     # decode attention runs on the cache layout's kernel alone
     if m["paged"]:
-        attn, layout = "paged_flash_decode", f"paged pool of " \
-            f"{m['num_pages']} pages of {s['page_size']}" \
-            f"{', radix tree' if m['prefix_cache'] else ''}"
+        layout = f"paged pool of {m['num_pages']} pages of " \
+            f"{s['page_size']}{', radix tree' if m['prefix_cache'] else ''}"
     else:
-        attn = "flash_decode"
         layout = (f"contiguous cache of {m['max_seq']} rows a slot"
                   if not cfg.window else
                   f"contiguous ring of {cfg.window} rows a slot") + \
-            f", flash_decode {ops.get_variant(attn).describe()}"
+            f", flash_decode {ops.get_variant('flash_decode').describe()}"
     log(f"  {label}: fused_add_rmsnorm {rms.describe()}; silu_and_mul "
         f"{ops.get_variant('silu_and_mul').describe()}")
-    # every prefill (whole or suffix) and every decode pass launches the
-    # norms 2L+1 times (twice each for a two-pass rmsnorm) and silu L
-    # times; the merge is not on the path
-    want = {"fused_add_rmsnorm": (2 if rms.two_pass else 1)
-            * (2 * cfg.n_layers + 1) * (decode + prefills),
-            "silu_and_mul": cfg.n_layers * (decode + prefills),
-            "paged_flash_decode": 0, "flash_decode": 0,
-            "merge_attn_states_lse": 0}
-    want[attn] = cfg.n_layers * decode
     log(f"  {len(prompts)} requests"
         f"{', every other sampled ' + str(SAMPLED) if sampling else ''}, "
         f"prompt lengths {m['prompt_lens']}, max_new_tokens {s['max_new']}, "
@@ -1262,11 +1277,12 @@ def phase_serve(label: str, s: dict) -> tuple[bool, dict, list, dict]:
             f"{m['suffix_prefills']}, cow_copies={m['cow_copies']}, "
             f"tree_evictions={m['tree_evictions']}, tree_pages="
             f"{m['tree_pages']}")
-    for name, n in m["launches"].items():
-        good = n == want[name]
-        ok &= good
-        log(f"  launches {name}: {n} (expected {want[name]}) "
-            f"{'ok' if good else 'WRONG'}")
+    # every request is prefilled once (whole, or its suffix after a hit)
+    if m["prefills"] + m["suffix_prefills"] != len(prompts):
+        log(f"  FAIL {m['prefills']} prefills and {m['suffix_prefills']} "
+            f"suffix prefills for {len(prompts)} requests")
+        ok = False
+    ok &= check_launches(m, expected_launches(cfg, m))
     if m["readbacks"] != steps:
         log(f"  FAIL readbacks {m['readbacks']} != steps {steps}")
         ok = False
@@ -1311,6 +1327,221 @@ def bf16_rule(what: str, cfg, params, prompts, want, got) -> bool:
     log(f"  {what}: {n} of {len(want)} streams differ, "
         f"{'each first at a bf16 near-tie' if ok else 'NOT at near-ties'}")
     return ok
+
+
+def chaos_plan() -> list:
+    """Phase 4c's fault plan, keyed on engine steps."""
+    from repro_torch.reliability import Fault
+    return [Fault("abort", step=2, rid=1), Fault("abort", step=5, rid=5),
+            Fault("device_fault", step=7, slot=1),
+            Fault("pool_exhaustion", step=10, pages=5, steps=4),
+            Fault("corrupt_readback", step=12, slot=2)]
+
+
+def chaos_prompts(cfg, s: dict) -> list:
+    """Phase 4's prompts, then an empty one and one of ``max_seq``
+    tokens, which admission must reject."""
+    from repro_torch.launch.serve import prompts_for
+    prompts = prompts_for(cfg, s["requests"], s["min_prompt"],
+                          s["max_prompt"], s["seed"], crossing=s["crossing"])
+    return prompts + [np.zeros(0, np.int32),
+                      np.ones(s["max_seq"], np.int32)]
+
+
+def expected_launches(cfg, m: dict, k: int = 0, draft=None) -> dict:
+    """What a serve's kernels launch, from its counts: every prefill
+    (whole or suffix) and every decode pass launches the norms 2L+1 times
+    (twice each for a two-pass rmsnorm) and silu L times, and a decode
+    pass the layout's attention L times. A spec step (``k`` drafts) makes
+    k + 1 target passes and, with a ``draft`` model config, k + 1 draft
+    passes (contiguous ``flash_decode``) and one draft prefill per
+    prefill. The merge is not on the path."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import WARMUP_STEPS
+
+    # decode steps: the replays, and the warm-ups of a capture made
+    # during the run (the draw's, at the first sampled admission)
+    steps = m["steps"] + m["capture_warmups"] - WARMUP_STEPS
+    passes = (k + 1) * steps
+    prefills = m["prefills"] + m["suffix_prefills"]
+    norm = 2 if ops.get_variant("fused_add_rmsnorm").two_pass else 1
+    want = dict.fromkeys(SOURCES, 0)
+    attn = "paged_flash_decode" if m["paged"] else "flash_decode"
+    models = [(cfg, attn)] + ([(draft, "flash_decode")]
+                              if draft is not None else [])
+    for c, kernel in models:
+        want["fused_add_rmsnorm"] += norm * (2 * c.n_layers + 1) \
+            * (passes + prefills)
+        want["silu_and_mul"] += c.n_layers * (passes + prefills)
+        want[kernel] += c.n_layers * passes
+    return want
+
+
+def check_launches(m: dict, want: dict) -> bool:
+    ok = True
+    for name, n in m["launches"].items():
+        good = n == want[name]
+        ok &= good
+        log(f"  launches {name}: {n} (expected {want[name]}) "
+            f"{'ok' if good else 'WRONG'}")
+    return ok
+
+
+def check_run(m: dict, captures: int = 1) -> bool:
+    """readbacks == steps == graph_replays, the captures, the pool."""
+    ok = m["readbacks"] == m["steps"] == m["graph_replays"] \
+        and m["decode_captures"] == captures
+    log(f"  steps={m['steps']} readbacks={m['readbacks']} graph_replays="
+        f"{m['graph_replays']} decode_captures={m['decode_captures']} "
+        f"(expected {captures}) {'ok' if ok else 'WRONG'}")
+    if m["paged"]:
+        log(f"  pool_check={'ok' if m['pool_ok'] else m['pool_error']}, "
+            f"every page but the tree's released={m['pool_released']}")
+        ok &= m["pool_ok"] and m["pool_released"]
+    return ok
+
+
+def phase_chaos_serve(over: list, streams: list) -> tuple[dict, dict]:
+    """4c (a): the chaos serve on the oversubscribed pool and the deadline
+    drill. ``over``/``streams``: phase 4's oversubscribed and fully
+    subscribed streams. Returns (ok by name, launch counts by path)."""
+    from repro_torch import configs
+    from repro_torch.launch.serve import measure, prompts_for
+    from repro_torch.reliability import Fault
+
+    ok, counts = {}, {}
+    s = SERVE_OVER
+    cfg = configs.get(s["arch"])
+    params = serve_params(cfg, s["seed"])
+    prompts = chaos_prompts(cfg, s)
+    plan = chaos_plan()
+    log(f"  chaos serve: phase 4's {s['requests']} requests plus an empty "
+        f"prompt and one of {s['max_seq']} tokens, {s['num_pages']} pages "
+        f"of {s['page_size']}, swap; plan " + ", ".join(
+            f"{f.kind}@{f.step}" + (f" rid {f.rid}" if f.rid is not None
+                                    else "")
+            + (f" slot {f.slot}" if f.slot is not None else "")
+            + (f" {f.pages} pages for {f.steps} steps" if f.pages else "")
+            for f in plan))
+    m, outs = measure(params, cfg, prompts, max_new=s["max_new"],
+                      slots=s["slots"], max_seq=s["max_seq"],
+                      page_size=s["page_size"], device="cuda",
+                      num_pages=s["num_pages"], preemption=s["preemption"],
+                      chaos=plan, check_steps=True)
+    got = {key: m[key] for key in CHAOS_COUNTS}
+    good = m["chaos_exhausted"] and got == CHAOS_COUNTS
+    log(f"  plan exhausted={m['chaos_exhausted']}, injected "
+        f"{m['chaos_injected']}, relents {m['chaos_relents']}; counts {got} "
+        f"(expected {CHAOS_COUNTS}) {'ok' if good else 'WRONG'}; "
+        f"deadline_expired={m['deadline_expired']} preemptions="
+        f"{m['preemptions']}")
+    log(f"  finish reasons: {m['reasons']}; pool checked after each of "
+        f"{m['step_checks']} steps; tok_s={m['tok_s']:.1f} "
+        f"mean_decode_step_ms={1e3 * m['decode_step_s']:.3f}")
+    good &= check_run(m) and m["step_checks"] >= m["steps"]
+    for o in outs[:s["requests"]]:
+        want = over[o.rid]
+        if o.finish_reason == "done":
+            fine = o.tokens == want
+        else:
+            fine = o.finish_reason in ("aborted", "failed") \
+                and o.tokens == want[:len(o.tokens)]
+        if not fine:
+            log(f"  FAIL request {o.rid} ({o.finish_reason}, "
+                f"{len(o.tokens)} tokens) leaves phase 4's stream")
+        good &= fine
+    good &= all(o.finish_reason == "rejected" for o in outs[s["requests"]:])
+    good &= check_launches(m, expected_launches(cfg, m))
+    ok["serve_chaos"], counts["serve_chaos"] = good, m["launches"]
+
+    d = SERVE
+    prompts = prompts_for(cfg, d["requests"], d["min_prompt"],
+                          d["max_prompt"], d["seed"])[:4]
+    deadlines = [DEADLINE_S if rid == 1 else None for rid in range(4)]
+    m, outs = measure(params, cfg, prompts, max_new=d["max_new"],
+                      slots=d["slots"], max_seq=d["max_seq"],
+                      page_size=d["page_size"], device="cuda",
+                      chaos=[Fault("stall", step=3,
+                                   seconds=DEADLINE_STALL_S)],
+                      deadlines=deadlines, check_steps=True)
+    good = [o.finish_reason for o in outs] == \
+        ["done", "deadline", "done", "done"] \
+        and m["deadline_expired"] == 1 and m["chaos_exhausted"]
+    good &= all(o.tokens == streams[o.rid] if o.finish_reason == "done"
+                else o.tokens == streams[o.rid][:len(o.tokens)]
+                for o in outs)
+    log(f"  deadline drill: a {DEADLINE_STALL_S} s stall at step 3, "
+        f"request 1's deadline {DEADLINE_S} s: finish reasons "
+        f"{[o.finish_reason for o in outs]}, request 1 cut at "
+        f"{len(outs[1].tokens)} tokens, deadline_expired="
+        f"{m['deadline_expired']} {'ok' if good else 'WRONG'}")
+    good &= check_run(m) and check_launches(m, expected_launches(cfg, m))
+    ok["serve_deadline"], counts["serve_deadline"] = good, m["launches"]
+    return ok, counts
+
+
+def phase_spec_serve(streams: list, base: dict) -> tuple[dict, dict]:
+    """4c (b): phase 4's requests decoded speculatively with the n-gram
+    drafter, the self-draft, and the self-draft on the oversubscribed
+    pool. ``streams``/``base``: phase 4's reintegrated streams and
+    metrics. Returns (ok by name, launch counts by path)."""
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import measure, prompts_for
+    from repro_torch.serving import SpecConfig
+
+    ok, counts = {}, {}
+    cfg = configs.get(SERVE["arch"])
+    params = serve_params(cfg, SERVE["seed"])
+    tuned_fd = ops.get_variant("flash_decode")
+    twin, _ = paged_twin(SERVE)
+    base_step = base["decode_step_s"]
+    log(f"  phase 4 (greedy, no spec): tok_s={base['tok_s']:.1f} "
+        f"steps={base['steps']} mean_decode_step_ms={1e3 * base_step:.3f}")
+    self_draft = SpecConfig("draft_model", k=3, draft_params=params,
+                            draft_cfg=cfg)
+    for path, label, s, spec in (
+            ("serve_spec_ngram", "n-gram drafter, k 4", SERVE,
+             SpecConfig("ngram", k=4)),
+            ("serve_spec_draft", "self-draft, k 3", SERVE, self_draft),
+            ("serve_spec_oversubscribed",
+             "self-draft, k 3, oversubscribed pool", SERVE_OVER,
+             self_draft)):
+        draft = spec.draft_cfg
+        if draft is not None:
+            ops.set_variants(flash_decode=twin)
+        prompts = prompts_for(cfg, s["requests"], s["min_prompt"],
+                              s["max_prompt"], s["seed"])
+        m, outs = measure(params, cfg, prompts, max_new=s["max_new"],
+                          slots=s["slots"], max_seq=s["max_seq"],
+                          page_size=s["page_size"], device="cuda",
+                          num_pages=s.get("num_pages"),
+                          preemption=s.get("preemption", "swap"),
+                          spec=spec)
+        if draft is not None:
+            ops.set_variants(flash_decode=tuned_fd)
+        cap = m["capture_by_step"].get("spec", {"s": 0.0, "pool_mib": 0.0})
+        step = m["decode_step_s"]
+        log(f"  {label}: tok_s={m['tok_s']:.1f} steps={m['steps']} "
+            f"accepted_per_step={m['accepted_per_step']:.3f} draft_tokens="
+            f"{m['draft_tokens']} accepted_tokens={m['accepted_tokens']} "
+            f"accept_rate={m['accept_rate']:.3f} mean_decode_step_ms="
+            f"{1e3 * step:.3f} (per committed token "
+            f"{1e3 * step / max(m['accepted_per_step'], 1e-9):.3f}, phase 4's"
+            f" step {1e3 * base_step:.3f}); spec step capture "
+            f"{cap['s']:.3f} s, graph pool {cap['pool_mib']:.1f} MiB; "
+            f"preemptions={m['preemptions']}")
+        good = check_run(m)
+        good &= m["spec_on"] and all(o.finish_reason == "done"
+                                     and len(o.tokens) == s["max_new"]
+                                     for o in outs)
+        good &= same(f"{label} streams against phase 4's",
+                     [o.tokens for o in outs], streams)
+        if s.get("num_pages"):
+            good &= m["preemptions"] >= 1
+        good &= check_launches(m, expected_launches(cfg, m, spec.k, draft))
+        ok[path], counts[path] = good, m["launches"]
+    return ok, counts
 
 
 def paged_twin(s: dict):
@@ -1652,7 +1883,7 @@ def main() -> int:
     ok["serve shipped"], shipped_counts, _, _ = phase_serve(
         "shipped genomes", SERVE)
     ops.set_variants(**tuned)
-    ok["serve"], serve_counts, streams, _ = phase_serve(
+    ok["serve"], serve_counts, streams, serve_m = phase_serve(
         "reintegrated genomes", SERVE)
     ok["serve h2o"], h2o_counts, _, _ = phase_serve("reintegrated genomes",
                                                     SERVE_H2O)
@@ -1668,6 +1899,16 @@ def main() -> int:
     request_ok, request_counts = phase_serve_requests(streams)
     ok.update(request_ok)
     phase_s["serve requests"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    log("phase 4c: serve qwen2-0.5b under chaos, with deadlines, and "
+        "decoded speculatively (reintegrated genomes)")
+    chaos_ok, chaos_counts = phase_chaos_serve(over_streams, streams)
+    spec_ok, spec_counts = phase_spec_serve(streams, serve_m)
+    ok.update(chaos_ok)
+    ok.update(spec_ok)
+    request_counts.update(chaos_counts)
+    request_counts.update(spec_counts)
+    phase_s["serve lifecycle and spec"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     log("phase 5: reference on a small input")
     ok["reference"] = phase_reference()

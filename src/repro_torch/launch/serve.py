@@ -27,12 +27,25 @@ requests carry priorities ``rid % 3``, so ``priority`` reorders them:
 carries them across it) and N a length past it (prefilled at exact
 length and laid out as the ring).
 
+``--chaos PLAN`` injects step-indexed faults (``kind@step[:k=v[;k=v]]``,
+comma-separated: ``abort``, ``device_fault``, ``pool_exhaustion``,
+``corrupt_readback``, ``stall``) into the measured serve, and
+``--deadline S`` gives every request a wall-clock budget of S seconds;
+``--spec ngram|draft_model`` decodes speculatively with ``--spec-k``
+drafts a step (greedy requests only; ``draft_model`` drafts with a
+half-depth sibling of the served model, drawn from ``--seed + 1``):
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --chaos "abort@2:rid=1,device_fault@5:slot=0" --deadline 30
+    PYTHONPATH=src python -m repro_torch.launch.serve --spec ngram \
+        --spec-k 4
+
 It prints one JSON line of serving metrics (tok/s, mean TTFT, the mean
 wall time of a decode step, steps, readbacks, kernel launches,
 preemptions and pages swapped, the decode step's captures and graph
 replays, the scheduler's reorders, the prefix cache's hit tokens, suffix
-prefills and copy-on-write copies, and on the card the peak memory and
-the card's name and power limit). ``--profile`` adds, for the measured
+prefills and copy-on-write copies, the request lifecycle's outcomes and
+the faults injected, the spec counters, and on the card the peak memory
+and the card's name and power limit). ``--profile`` adds, for the measured
 run, the device's busy share of the wall time, the host's
 ``cudaLaunchKernel`` and ``cudaGraphLaunch``
 calls, each of the port's kernels by name with its launches and device
@@ -45,6 +58,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import re
 import subprocess
@@ -57,7 +71,13 @@ from repro_torch import configs
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import registry
-from repro_torch.serving import LLMEngine, SamplingParams
+from repro_torch.reliability import Fault
+from repro_torch.serving import LLMEngine, SamplingParams, SpecConfig
+
+LIFECYCLE = ("aborted", "rejected", "failed", "deadline_expired",
+             "recoveries")
+SPEC_STATS = ("spec_on", "spec_drafter", "spec_k", "draft_tokens",
+              "accepted_tokens", "accepted_per_step", "accept_rate")
 
 
 # the port's CUDA kernels by the name of their __global__ function
@@ -134,6 +154,37 @@ def kernel_times(events) -> dict:
     return out
 
 
+def parse_chaos(plan: str) -> list:
+    """A fault plan from its compact form, ``kind@step[:k=v[;k=v]]``
+    joined by commas, e.g. ``abort@2:rid=1,device_fault@5:slot=0,
+    pool_exhaustion@8:pages=3;steps=4`` (the JAX serve command's
+    syntax)."""
+    faults = []
+    for part in plan.split(","):
+        head, _, kv = part.strip().partition(":")
+        kind, _, step = head.partition("@")
+        extra = {}
+        for item in filter(None, kv.split(";")):
+            k, _, v = item.partition("=")
+            extra[k.strip()] = float(v) if k.strip() == "seconds" \
+                else int(v)
+        faults.append(Fault(kind=kind.strip(), step=int(step), **extra))
+    return faults
+
+
+def make_spec(drafter: str, k: int, cfg, seed: int, device) -> SpecConfig:
+    """``--spec`` / ``--spec-k`` as a ``SpecConfig``. The draft model is a
+    half-depth sibling of ``cfg`` with weights from ``seed + 1``: a
+    stand-in with the cost and acceptance of a small drafter."""
+    if drafter == "ngram":
+        return SpecConfig(drafter="ngram", k=k)
+    dcfg = dataclasses.replace(cfg, name=cfg.name + "-draft",
+                               n_layers=max(1, cfg.n_layers // 2))
+    return SpecConfig(drafter="draft_model", k=k, draft_cfg=dcfg,
+                      draft_params=registry.init_params(
+                          dcfg, seed=seed + 1, device=device))
+
+
 def card() -> str:
     """The card's name and power limit, as nvidia-smi reports them."""
     return subprocess.run(
@@ -156,25 +207,40 @@ def measure(params, cfg, prompts, *, max_new: int, slots: int,
             max_seq: int, page_size: int, device, num_pages=None,
             preemption: str = "swap", paged=None, prefix_cache: bool = True,
             scheduler: str = "fcfs", sampling=None, priorities=None,
+            chaos=None, spec=None, deadlines=None, check_steps=False,
             profile_rows: int = 0) -> tuple[dict, list]:
     """Warm up on an engine of its own, then serve ``prompts`` once on a
     fresh engine (on the card its decode step is captured when it is
     built), with every kernel's launch count set to 0 just before.
     ``sampling`` is one ``SamplingParams`` or one per prompt (None:
-    greedy); ``priorities`` one int per prompt. Returns (metrics, the
-    ``RequestOutput`` list). The pool check runs at the end with the
-    tree's pages, then ``pool_released`` says whether every page in use
-    was the tree's and clearing the tree emptied the pool.
+    greedy); ``priorities`` one int per prompt; ``deadlines`` seconds (one
+    for all or one per prompt); ``spec`` a ``SpecConfig`` (both engines);
+    ``chaos`` a ``Fault`` list injected into the measured serve only.
+    ``check_steps`` runs the pool check after every step of it. Returns
+    (metrics, the ``RequestOutput`` list). The pool check runs at the end
+    with the tree's pages, then ``pool_released`` says whether every page
+    in use was the tree's and clearing the tree emptied the pool.
     ``profile_rows > 0`` runs the measured wave under ``torch.profiler``
     and prints its top operators."""
     dev = resolve_device(device)
     cuda = dev.type == "cuda"
     kw = dict(slots=slots, max_seq=max_seq, page_size=page_size, device=dev,
               num_pages=num_pages, preemption=preemption, paged=paged,
-              prefix_cache=prefix_cache, scheduler=scheduler)
+              prefix_cache=prefix_cache, scheduler=scheduler, spec=spec)
     LLMEngine(params, cfg, **kw).generate(
         *warm_up_prompts(cfg, page_size), max_new_tokens=4)
-    llm = LLMEngine(params, cfg, **kw)
+    llm = LLMEngine(params, cfg, chaos=list(chaos) if chaos else None, **kw)
+    step_checks = 0
+    if check_steps:
+        step = llm.engine.step
+
+        def checked_step():
+            nonlocal step_checks
+            ran = step()
+            llm.engine.check_pool()
+            step_checks += 1
+            return ran
+        llm.engine.step = checked_step
     if cuda:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -186,7 +252,7 @@ def measure(params, cfg, prompts, *, max_new: int, slots: int,
     with prof:
         t0 = time.perf_counter()
         outs = llm.generate(prompts, sampling, max_new_tokens=max_new,
-                            priorities=priorities)
+                            priorities=priorities, deadlines=deadlines)
         if cuda:
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -213,14 +279,23 @@ def measure(params, cfg, prompts, *, max_new: int, slots: int,
            "swapped_in_pages": st["swapped_in_pages"],
            "scheduler": st["scheduler"],
            "sched_reorders": st["sched_reorders"],
+           "prefills": st["prefills"],
            "suffix_prefills": st["suffix_prefills"],
+           "step_checks": step_checks,
+           "reasons": [o.finish_reason for o in outs],
            "ttfts": [o.ttft_s for o in outs],
            "hits": [o.prefix_hit_tokens for o in outs],
            "launches": ops.launch_counts(),
            "all_done": all(o.finish_reason == "done" for o in outs)}
     for key in ("prefix_cache", "prefix_hit_tokens", "prefix_query_tokens",
-                "cow_copies", "tree_evictions", "tree_pages"):
+                "cow_copies", "tree_evictions", "tree_pages") + LIFECYCLE:
         out[key] = st.get(key, 0)
+    if spec is not None:
+        out.update({key: st[key] for key in SPEC_STATS})
+    if chaos:
+        out.update(chaos_injected=st["chaos_injected"],
+                   chaos_relents=st["chaos_relents"],
+                   chaos_exhausted=llm.engine.chaos.exhausted)
     if st["paged"]:
         cm = llm.engine.cm
         try:
@@ -275,6 +350,8 @@ def run(args) -> dict:
     max_seq = args.max_seq or default_max_seq(cfg)
     sp = SamplingParams(temperature=args.temperature, top_k=args.top_k,
                         top_p=args.top_p, seed=args.sampling_seed)
+    spec = make_spec(args.spec, args.spec_k, cfg, args.seed, dev) \
+        if args.spec else None
     out, _ = measure(params, cfg, prompts, max_new=args.max_new,
                      slots=args.slots, max_seq=max_seq,
                      page_size=args.page_size, device=dev,
@@ -282,6 +359,8 @@ def run(args) -> dict:
                      prefix_cache=not args.no_prefix_cache,
                      scheduler=args.scheduler, sampling=sp,
                      priorities=[rid % 3 for rid in range(len(prompts))],
+                     chaos=parse_chaos(args.chaos) if args.chaos else None,
+                     spec=spec, deadlines=args.deadline,
                      profile_rows=args.rows if args.profile else 0)
     return out
 
@@ -323,6 +402,18 @@ def main(argv=None) -> None:
     ap.add_argument("--max-new", type=int, default=32)
     ap.add_argument("--crossing", type=int, default=0,
                     help="prompts just under and past the window, each")
+    ap.add_argument("--chaos", default=None, metavar="PLAN",
+                    help="step-indexed faults, e.g. 'abort@2:rid=1,"
+                    "device_fault@5:slot=0,pool_exhaustion@8:pages=3;"
+                    "steps=4'")
+    ap.add_argument("--deadline", type=float, default=None,
+                    help="every request's wall-clock budget, seconds "
+                    "(finish_reason 'deadline' when it runs out)")
+    ap.add_argument("--spec", default=None,
+                    choices=("ngram", "draft_model"),
+                    help="speculative decoding's drafter (greedy only)")
+    ap.add_argument("--spec-k", type=int, default=4,
+                    help="drafts a step (the verify scores k + 1)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--rows", type=int, default=25,

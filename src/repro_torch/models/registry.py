@@ -90,14 +90,19 @@ def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
 
 
 def decode_cached(params, cfg: ModelConfig, cache, token, pos, *,
-                  page_table=None):
+                  page_table=None, write_mask=None):
     """One decode step against either cache layout: ``page_table=None``
     selects the contiguous per-slot cache, a ``[B, pages_per_slot]`` int32
-    table the paged pool."""
+    table the paged pool. ``write_mask`` (paged only) sends the K/V of the
+    rows it masks to the trap page (the speculative verify)."""
     mod = module_for(cfg)
     if page_table is None:
+        if write_mask is not None:
+            raise ValueError("write_mask requires the paged cache layout "
+                             "(the contiguous cache has no trap page)")
         return mod.decode_step(params, cfg, cache, token, pos)
-    return mod.decode_step_paged(params, cfg, cache, page_table, token, pos)
+    return mod.decode_step_paged(params, cfg, cache, page_table, token, pos,
+                                 write_mask=write_mask)
 
 
 def write_cached(cfg: ModelConfig, cache, new, *, slot=None, pages=None,

@@ -264,15 +264,18 @@ def decode_step(params, cfg: ModelConfig, cache, token, pos):
 
 
 def decode_step_paged(params, cfg: ModelConfig, pool, page_table, token,
-                      pos):
+                      pos, *, write_mask=None):
     """One decode step over the paged pool, in place.
 
     pool: ``{"k","v": [L, num_pages, page, Hkv, dh]}``; page_table:
     ``[B, pages_per_slot]`` int32 on the pool's device (unallocated
     entries point at the trap page); token, pos: ``[B]`` int32. The new
     token's K/V goes to ``(page_table[b, pos // page], pos % page)`` and
-    attention gathers through the same table. Returns (logits ``[B,
-    V_pad]``, pool).
+    attention gathers through the same table. ``write_mask`` (``[B]``
+    bool) sends the K/V of the rows it masks to the trap page instead: the
+    speculative verify rejects draft positions through it, and the
+    logits are unchanged (the caller drops a masked row's). Returns
+    (logits ``[B, V_pad]``, pool).
     """
     b = token.shape[0]
     page = pool["k"].shape[2]
@@ -281,6 +284,9 @@ def decode_step_paged(params, cfg: ModelConfig, pool, page_table, token,
         .to(cfg.torch_dtype)                                    # [B,1,D]
     pidx = torch.clamp(pos // page, 0, n_pt - 1).long()
     phys = page_table[torch.arange(b, device=token.device), pidx].long()
+    if write_mask is not None:
+        # rejected speculative positions write to the trap page
+        phys = torch.where(write_mask, phys, torch.zeros_like(phys))
     off = (pos % page).long()
     cos, sin = L.rope_angles(pos[:, None], cfg.head_dim, cfg.rope_theta)
     residual = torch.zeros_like(hidden)

@@ -74,10 +74,18 @@ class CacheManager:
         """Why a request of ``n_tokens`` can never be admitted, or None."""
         return None
 
-    def decode(self, params, cache, token, pos, page_table=None):
-        """One decode step over the cache, in place."""
+    def clear_tree(self) -> int:
+        """Crash recovery: drop the prefix tree's references (its KV went
+        with the pool). Returns the references dropped."""
+        return 0
+
+    def decode(self, params, cache, token, pos, page_table=None,
+               write_mask=None):
+        """One decode step over the cache, in place. ``write_mask``
+        (paged only) sends the masked rows' K/V to the trap page."""
         return registry.decode_cached(params, self.cfg, cache, token, pos,
-                                      page_table=page_table)
+                                      page_table=page_table,
+                                      write_mask=write_mask)
 
     def backed(self, slot: int, write_pos: int) -> bool:
         """Is ``write_pos`` already backed for ``slot``?"""

@@ -24,8 +24,12 @@ is the caller's). A page returns to the free list exactly when its
 refcount reaches zero, so ``release`` also rolls back a partly built
 mapping. Allocation is a LIFO free stack, so streams never depend on
 allocator ordering noise. ``check()`` asserts the structural invariants,
-and, given each resident slot's next write position, that no slot's
-decode write lands in a page it maps shared.
+and, given the positions each resident slot's next step may write, that
+no slot's decode write lands in a page it maps shared.
+
+``seize_free`` / ``release_seized`` are the chaos harness's page-pool
+exhaustion fault: seized pages hold one external reference, exactly like
+tree pages, so every invariant keeps holding while a hold is live.
 """
 
 from __future__ import annotations
@@ -56,6 +60,7 @@ class PagePool:
         # refcnt[p] = (table entries mapping p) + ext[p]; index 0 = trap
         self.refcnt = [0] * (num_pages + 1)
         self._ext = [0] * (num_pages + 1)   # radix-tree references
+        self.seized: set = set()            # pages a chaos hold pins
         # device-facing tables; row = slot, entry = physical page (0 = trap)
         self.table = np.full((slots, pages_per_slot), TRAP_PAGE, np.int32)
         self.version = 0                    # bumped by every table change
@@ -157,13 +162,51 @@ class PagePool:
         self.table[slot, :] = TRAP_PAGE
 
     def tree_pages(self) -> set:
-        """Pages that hold an external (radix-tree) reference."""
-        return {p for p in range(1, self.num_pages + 1) if self._ext[p]}
+        """Pages that hold an external reference of the radix tree (a
+        chaos hold's seized pages are not the tree's)."""
+        return {p for p in range(1, self.num_pages + 1)
+                if self._ext[p] and p not in self.seized}
+
+    # -- chaos hooks --------------------------------------------------------
+
+    def seize_free(self, n: int) -> list[int]:
+        """Pull up to ``n`` pages off the free list and pin each with one
+        external reference (the chaos harness's pool-exhaustion fault).
+        Returns the seized pages, possibly fewer than ``n``."""
+        pages = []
+        for _ in range(min(n, len(self._free))):
+            page = self._free.pop()
+            self.refcnt[page] = 1
+            self._ext[page] = 1
+            pages.append(page)
+        self.seized.update(pages)
+        return pages
+
+    def release_seized(self, pages: list[int]) -> None:
+        """End a ``seize_free`` hold: drop its references."""
+        for page in pages:
+            self.seized.discard(page)
+            self.drop(page)
+
+    def stats(self) -> dict:
+        """Occupancy: pages in use, free, mapped by more than one owner
+        (table entries and external references), and external references
+        (the tree's and a chaos hold's)."""
+        n_shared = sum(1 for p in range(1, self.num_pages + 1)
+                       if self.refcnt[p] - self._ext[p] >= 2
+                       or (self._ext[p] and self.refcnt[p] > self._ext[p]))
+        return {"num_pages": self.num_pages,
+                "pages_in_use": self.pages_in_use,
+                "num_free": self.num_free,
+                "pages_shared": n_shared,
+                "tree_refs": sum(self._ext)}
+
+    # -- invariants ---------------------------------------------------------
 
     def check(self, writes: dict | None = None) -> None:
         """Structural and refcount invariants; raises AssertionError.
-        ``writes`` maps resident slots to their next decode write
-        position: each must fall in a page the slot owns privately (or in
+        ``writes`` maps resident slots to the positions their next step
+        may write: each must fall in a page the slot owns privately (or in
         none yet, which the engine grows before the step)."""
         all_owned = [p for pages in self.owned for p in pages]
         assert TRAP_PAGE not in all_owned, "trap page allocated"
@@ -197,9 +240,12 @@ class PagePool:
                               if p in pages and p not in self.shared[slot])
                 assert private <= 1, \
                     f"page {p} mapped writable by {private} slots"
-        for slot, pos in (writes or {}).items():
-            idx = pos // self.page_size
-            if idx < len(self.owned[slot]):
-                assert self.owned[slot][idx] not in self.shared[slot], \
-                    f"slot {slot} would write position {pos} into shared " \
-                    f"page {self.owned[slot][idx]}"
+        assert self.seized <= {p for p in range(1, self.num_pages + 1)
+                               if self._ext[p]}, "seized page not pinned"
+        for slot, positions in (writes or {}).items():
+            for pos in positions:
+                idx = pos // self.page_size
+                if idx < len(self.owned[slot]):
+                    assert self.owned[slot][idx] not in self.shared[slot], \
+                        f"slot {slot} would write position {pos} into " \
+                        f"shared page {self.owned[slot][idx]}"

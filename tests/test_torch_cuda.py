@@ -1225,3 +1225,64 @@ def test_copy_on_write_then_replay_leaves_the_shared_page(dev):
         assert st["graph_replays"] == st["steps"]
         streams.append({r.rid: list(r.out_tokens) for r in eng.finished})
     assert streams[0] == streams[1] and streams[0][0] == streams[0][1]
+
+
+# -- speculative decoding and crash recovery of the captured step -------------
+
+@pytest.mark.parametrize("drafter", ["ngram", "draft_model"])
+def test_spec_replay_equals_the_eager_body(dev, drafter):
+    """fp32, reduced qwen2: the captured spec step replayed on the card
+    gives the CPU engine's eager spec body's streams and counters, and the
+    target-only streams; one capture, one replay and one readback a
+    step."""
+    from repro_torch.serving import SpecConfig
+    cfg, params = _smoke("qwen2-0.5b")
+    spec = SpecConfig("ngram", k=4) if drafter == "ngram" else \
+        SpecConfig("draft_model", k=3, draft_params=params, draft_cfg=cfg)
+    lens, kw = [5, 40, 17, 60, 9], dict(slots=3, max_seq=256)
+    card, eng = _serve(params, cfg, dev, lens, 12, spec=spec, **kw)
+    cpu, ceng = _serve(params, cfg, "cpu", lens, 12, spec=spec, **kw)
+    plain, _ = _serve(params, cfg, dev, lens, 12, **kw)
+    st, cst = eng.stats(), ceng.stats()
+    assert card == cpu == plain
+    for key in ("steps", "draft_tokens", "accepted_tokens", "preemptions"):
+        assert st[key] == cst[key], key
+    assert st["decode_captures"] == 1 and "spec" in st["capture_by_step"]
+    assert st["graph_replays"] == st["readbacks"] == st["steps"] > 0
+
+
+def test_recovery_on_the_card_keeps_the_graph_buffers(dev):
+    """A device fault on the card: the recovery zeroes the pool, carry,
+    emit, table and draft cache in place (no new capture, the same
+    data_ptr()s), and the streams and counters equal the CPU engine's."""
+    from repro_torch.reliability import Fault
+    from repro_torch.serving import SpecConfig
+    cfg, params = _smoke("qwen2-0.5b")
+    spec = SpecConfig("draft_model", k=3, draft_params=params, draft_cfg=cfg)
+    kw = dict(slots=2, max_seq=128, spec=spec,
+              chaos=[Fault("device_fault", step=4, slot=0)])
+    lens = [20, 18, 25, 22]
+    from repro_torch.serving import Engine
+    probe = Engine(params, cfg, device=dev, **kw)
+    tensors = [probe._token, probe._pos, probe._active, probe._emit,
+               probe._drafts, probe._table, *probe.cache.values(),
+               *probe._drafter.cache.values()]
+    ptrs = [t.data_ptr() for t in tensors]
+    card, eng = _serve(params, cfg, dev, lens, 10, **kw)
+    cpu, ceng = _serve(params, cfg, "cpu", lens, 10, **kw)
+    st, cst = eng.stats(), ceng.stats()
+    assert card == cpu
+    for key in ("steps", "recoveries", "failed", "accepted_tokens"):
+        assert st[key] == cst[key], key
+    assert st["recoveries"] == 1 and st["decode_captures"] == 1
+    assert st["graph_replays"] == st["readbacks"] == st["steps"]
+    # a recovery on the engine built first leaves its tensors in place
+    rng = np.random.default_rng(5)
+    from repro_torch.serving import Request
+    for rid, n in enumerate(lens):
+        probe.submit(Request(rid=rid, prompt=rng.integers(0, cfg.vocab, n),
+                             max_new_tokens=10))
+    probe.run()
+    assert probe.recoveries == 1
+    assert [t.data_ptr() for t in tensors] == ptrs
+    assert {r.rid: list(r.out_tokens) for r in probe.finished} == card

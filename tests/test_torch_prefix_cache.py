@@ -16,8 +16,9 @@ the CPU at the reduced qwen2-0.5b config (the counterparts of
   1e-5 / atol 1e-4); ``copy_pages`` exactly.
 * A hypothesis state machine drives the port's paged manager (its
   ``RadixCache`` and ``PagePool``) and JAX's with the same admissions,
-  inserts, growth, releases and evictions: equal results, tables,
-  refcounts and trees, and ``check()`` after every step.
+  inserts, growth, releases, evictions and the chaos harness's page
+  holds (``seize_free`` / ``release_seized``): equal results, tables,
+  refcounts, trees and pool stats, and ``check()`` after every step.
 * ``chip_smoke.py``'s shared-prefix constants equal the JAX engine's
   counts at its settings, and the ``shared_prefix`` golden (bf16,
   non-partitionable threefry weights) holds under the bf16 rule (3e-2 /
@@ -294,6 +295,7 @@ class RadixPoolMachine(RuleBasedStateMachine):
                                       **kw)
         self.t = PagedCacheManager(cfg, SLOTS, MAX_SEQ, "cpu", **kw)
         self.tokens = [None] * SLOTS
+        self.holds = []                 # the chaos harness's page holds
 
     slots = st.integers(0, SLOTS - 1)
 
@@ -336,6 +338,19 @@ class RadixPoolMachine(RuleBasedStateMachine):
     def clear_tree(self):
         assert self.t.clear_tree() == self.j.clear_tree()
 
+    @rule(n=st.integers(1, 3))
+    def seize(self, n):
+        got = self.t.pool.seize_free(n)
+        assert got == self.j.pool.seize_free(n)
+        self.holds.append(got)
+
+    @rule(which=st.integers(0, 3))
+    def release_seized(self, which):
+        if self.holds:
+            pages = self.holds.pop(which % len(self.holds))
+            self.t.pool.release_seized(pages)
+            self.j.pool.release_seized(pages)
+
     @invariant()
     def same_state(self):
         self.t.pool.check()
@@ -345,6 +360,9 @@ class RadixPoolMachine(RuleBasedStateMachine):
         assert tp.refcnt == jp.refcnt and tp.owned == jp.owned
         assert tp.shared == jp.shared and tp._free == jp._free
         assert sorted(self.t.tree.pages()) == sorted(self.j.tree.pages())
+        assert tp.seized == {p for h in self.holds for p in h}
+        assert tp.tree_pages() == set(self.t.tree.pages())
+        assert tp.stats() == jp.stats()
         assert self.t.has_free == self.j.has_free
         ts, js = self.t.stats(), self.j.stats()
         assert {k: ts[k] for k in ts} == {k: js[k] for k in ts}

@@ -219,7 +219,8 @@ def _serve_args(**kw):
                 min_prompt=3, max_prompt=30, max_new=4, crossing=0, seed=0,
                 profile=False, rows=0, no_prefix_cache=False,
                 scheduler="fcfs", temperature=0.0, top_k=0, top_p=1.0,
-                sampling_seed=None)
+                sampling_seed=None, chaos=None, deadline=None, spec=None,
+                spec_k=4)
     return argparse.Namespace(**{**args, **kw})
 
 
