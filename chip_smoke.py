@@ -13,7 +13,10 @@ Phases, each of which fails the run (non-zero exit) on any error:
    stated; each kernel's time beside its bound and beside the plain
    version's time, and, for the contiguous decode attention, beside one
    ``scaled_dot_product_attention`` call on the same inputs (the port
-   never calls it). The shipped genomes, and the baseline genomes; the
+   never calls it). The shipped genomes at the olmoe-1b-7b shapes too
+   (silu on the 3-D expert tensor of a decode step and of a 256-token
+   prefill, rmsnorm at width 2048, flash_decode at head_dim 128, group
+   1). The shipped genomes, and the baseline genomes; the
    split-KV decode kernels' launch plans (splits, grid) first, and after
    the timings both decode kernels checked for every genome of their
    flags at kv_len 0, 1, the cache's rows and each split boundary +- 1,
@@ -114,13 +117,26 @@ Phases, each of which fails the run (non-zero exit) on any error:
    4 checks, launch counts included (a spec step runs the target k + 1
    times and, for the draft model, the draft k + 1 times; every
    admission's prefill runs the draft's prefill too).
-5. Reference: on the reduced qwen2 and h2o-danube configs in fp32, the
-   port's logits (the h2o ones past the window and after the ring wraps)
-   and greedy streams on the card agree with its plain versions on the
-   CPU.
+4d. The mixture of experts: olmoe-1b-7b at full width in bf16 (seeded
+   weights, the router in fp32) with the reintegrated genomes, phase 4's
+   16 greedy requests of 32 tokens (prompts of 16-256 tokens, within the
+   dispatch group) on 8 slots of the contiguous cache (the family cannot
+   page), each prompt prefilled at its exact length. Checks what phase 4
+   checks (one capture, ``readbacks == steps == graph_replays``, launch
+   counts: silu once a layer a pass on the experts' 3-D tensor,
+   ``flash_decode`` as the attention); prints the seeded init time, the
+   weight bytes, the capture and its graph pool, the mean decode step
+   beside its bound (every weight but the embedding table read once a
+   step, over the card's memory rate), tok_s and ttft.
+5. Reference: on the reduced qwen2, h2o-danube and olmoe configs in fp32,
+   the port's logits (the h2o ones past the window and after the ring
+   wraps) and greedy streams on the card agree with its plain versions on
+   the CPU; the olmoe streams on more slots than the decode capacity, with
+   TF32 off (a TF32 router would pick other experts on the card).
 
 ``--time-serve SRC ARCH`` runs no phase: it serves phase 4's fully
-subscribed workload of ARCH (qwen2-0.5b or h2o-danube-1.8b) with the
+subscribed workload of ARCH (qwen2-0.5b, h2o-danube-1.8b or
+olmoe-1b-7b; the parent of the MoE port has no olmoe) with the
 package under SRC (this tree's ``src``, or a checkout of the parent
 commit), times every engine step on the host, and prints one JSON line:
 tok_s, ttft, steps, and the mean wall time of a step that admits nothing
@@ -163,6 +179,9 @@ SERVE = dict(arch="qwen2-0.5b", slots=8, max_seq=512, page_size=16,
 # two prompts just under the window (decoding crosses it), two past it
 SERVE_H2O = dict(SERVE, arch="h2o-danube-1.8b", max_seq=8192,
                  max_prompt=2048, crossing=2)
+# olmoe-1b-7b on phase 4's requests: the contiguous cache (auto), exact
+# prefill lengths
+SERVE_OLMOE = dict(SERVE, arch="olmoe-1b-7b")
 # 48 pages of 16 rows against 8 slots x 512 rows (256 pages): swap
 SERVE_OVER = dict(SERVE, num_pages=48, preemption="swap")
 # phase 4's requests, every other one sampled with its own seed
@@ -376,6 +395,7 @@ def kernel_cases():
                     nbytes, 4 * rows * hq * dh, False,
                     hq == 32 and g is not fd.BASELINE,
                     sdpa(q, k, v, n) if g is not fd.BASELINE else None))
+        cases += moe_cases(dtype)
         for shape in ({"seq": 512, "heads": 32, "head_dim": 256},
                       {"seq": 768, "heads": 32, "head_dim": 256},
                       {"seq": 100, "heads": 7, "head_dim": 128}):
@@ -393,6 +413,53 @@ def kernel_cases():
                     lambda a=(va, sa, vb, sb), g=g: merge.plain(g, *a),
                     3 * n * d * es + 12 * n, 3 * n * d, True,
                     n == 768 * 32 and g is merge.OPTIMIZED, None))
+    return cases
+
+
+def moe_cases(dtype):
+    """The olmoe-1b-7b shapes (shipped genomes), in kernel_cases' form:
+    silu on the experts' ``[64, C, 2 * 1024]`` tensor of a decode step on
+    8 slots (C 8) and of a 256-token prefill (C 40), rmsnorm at ``[8,
+    2048]``, and flash_decode at b 8, 16/16 heads of 128 (group 1) on a
+    512-row cache with ragged lengths, beside SDPA."""
+    from repro_torch import configs
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import moe
+    cfg = configs.get(SERVE_OLMOE["arch"])
+    es = torch.tensor([], dtype=dtype).element_size()
+    e, f, d = cfg.n_experts, cfg.expert_ff, cfg.d_model
+    cases = []
+    for tokens in (SERVE_OLMOE["slots"], moe.GROUP):
+        c = moe.capacity(cfg, tokens)
+        x = randn((e, c, 2 * f), dtype, 7, scale=3.0)
+        rows = e * c
+        cases.append(("silu_and_mul", f"olmoe {tokens} tokens: experts={e} "
+                      f"x rows={c} d={f}", dtype,
+                      lambda x=x: ops.silu_and_mul(x),
+                      lambda x=x: ref.silu_and_mul(x),
+                      3 * rows * f * es, 6 * rows * f, False, False, None))
+    rows = SERVE_OLMOE["slots"]
+    x, r = randn((rows, d), dtype, 8), randn((rows, d), dtype, 9)
+    w = randn((d,), torch.float32, 10) * 0.1 + 1.0
+    cases.append(("fused_add_rmsnorm", f"olmoe rows={rows} d={d}", dtype,
+                  lambda: ops.fused_add_rmsnorm(x, r, w),
+                  lambda: ref.fused_add_rmsnorm(x, r, w),
+                  4 * rows * d * es + 4 * d, 6 * rows * d, False, False,
+                  None))
+    b, hq, hkv, dh = rows, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    s = SERVE_OLMOE["max_seq"]
+    lens = [1, 64, 511, 512, 200, 33, 300, 97]
+    q, k, v, n = flash_inputs(b, hq, hkv, dh, s, lens, dtype)
+    g = ops.get_variant("flash_decode")
+    nbytes = 2 * b * hq * dh * es + 2 * sum(lens) * hkv * dh * es + 4 * b
+    cases.append(("flash_decode", f"olmoe b={b} hq/hkv={hq}/{hkv} d={dh} "
+                  f"s={s} kv_len={lens} {g.describe()}", dtype,
+                  lambda: fd.flash_decode_attention(q, k, v, kv_len=n,
+                                                    variant=g),
+                  lambda: fd.plain(g, q, k, v, n, dh ** -0.5),
+                  nbytes, 4 * sum(lens) * hq * dh, False, False,
+                  sdpa(q, k, v, n)))
     return cases
 
 
@@ -1177,11 +1244,24 @@ def serve_params(cfg, seed: int):
         t0 = time.perf_counter()
         _PARAMS[key] = registry.init_params(cfg, seed=seed)
         torch.cuda.synchronize()
+        ff = (f"{cfg.n_experts} experts top-{cfg.top_k} of expert_ff "
+              f"{cfg.expert_ff}" if cfg.family == "moe"
+              else f"d_ff {cfg.d_ff}")
         log(f"  {cfg.name} full width ({cfg.n_layers} layers, d_model "
-            f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, d_ff "
-            f"{cfg.d_ff}, vocab {cfg.padded_vocab}, window {cfg.window}) "
-            f"{cfg.dtype}, seeded init {time.perf_counter() - t0:.1f} s")
+            f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, {ff}, "
+            f"vocab {cfg.padded_vocab}, window {cfg.window}) "
+            f"{cfg.dtype}, seeded init {time.perf_counter() - t0:.1f} s, "
+            f"weights {param_bytes(_PARAMS[key]) / 1e9:.3f} GB")
     return _PARAMS[key]
+
+
+def param_bytes(tree) -> int:
+    """Bytes of a parameter tree's tensors."""
+    if isinstance(tree, dict):
+        return sum(param_bytes(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(param_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
 
 
 def phase_serve(label: str, s: dict) -> tuple[bool, dict, list, dict]:
@@ -1293,6 +1373,37 @@ def phase_serve(label: str, s: dict) -> tuple[bool, dict, list, dict]:
                 f"{len(o.tokens)} tokens {o.error or ''}")
             ok = False
     return ok, m["launches"], [o.tokens for o in outs], m
+
+
+def phase_serve_moe() -> tuple[bool, dict]:
+    """4d: olmoe-1b-7b at full width on the contiguous cache (phase_serve
+    with SERVE_OLMOE), its prefills at exact length, and its decode step
+    beside the step's bound: every weight but the embedding table read
+    once (the table's rows of the step's tokens aside; the KV rows left
+    out), over the card's memory rate. Returns (ok, launch counts)."""
+    from repro_torch import configs
+    s = SERVE_OLMOE
+    cfg = configs.get(s["arch"])
+    ok, counts, _, m = phase_serve("reintegrated genomes", s)
+    params = serve_params(cfg, s["seed"])
+    emb = params["embed"]
+    step_bytes = param_bytes(params) - param_bytes(emb) \
+        + s["slots"] * emb.shape[1] * emb.element_size()
+    bound_ms = step_bytes / HBM_BYTES_S * 1e3
+    step_ms = 1e3 * m["decode_step_s"]
+    log(f"  olmoe decode step {step_ms:.3f} ms against its bound "
+        f"{bound_ms:.3f} ms ({step_bytes / 1e9:.3f} GB a step at "
+        f"{HBM_BYTES_S / 1e12:.2f} TB/s; {100 * bound_ms / step_ms:.1f}% "
+        f"of the bound); tok_s={m['tok_s']:.1f} "
+        f"mean_ttft_s={m['ttft_s']:.4f}; peak_mem_GiB="
+        f"{m['peak_mem_gib']:.2f}")
+    lengths = len(set(m["prompt_lens"]))
+    exact = not m["paged"] and len(m["prefill_buckets"]) == lengths \
+        and set(m["prefill_buckets"]) == set(m["prompt_lens"])
+    log(f"  contiguous cache, {len(m['prefill_buckets'])} prefill shapes "
+        f"for {lengths} prompt lengths (exact-length prefill): "
+        f"{'ok' if exact else 'WRONG'}")
+    return ok and exact, counts
 
 
 def same(what: str, a, b) -> bool:
@@ -1661,7 +1772,7 @@ def time_serve(arch: str) -> dict:
     from repro_torch.models import registry
     from repro_torch.serving import CacheConfig, Engine, Request
 
-    s = {SERVE["arch"]: SERVE, SERVE_H2O["arch"]: SERVE_H2O}[arch]
+    s = {c["arch"]: c for c in (SERVE, SERVE_H2O, SERVE_OLMOE)}[arch]
     cfg = configs.get(arch)
     params = registry.init_params(cfg, seed=s["seed"])
 
@@ -1799,6 +1910,61 @@ def phase_reference_window() -> bool:
     return ok and same
 
 
+def phase_reference_moe() -> bool:
+    """Reduced olmoe config in fp32: prefill and decode logits (three
+    slots of the contiguous cache) and greedy streams on ten slots, more
+    than the decode capacity of 8, so that slots, idle ones included,
+    compete for expert capacity: on the card against the plain versions
+    on the CPU. TF32 must be off: a TF32 router would pick other experts
+    on the card than on the CPU."""
+    from repro_torch import configs
+    from repro_torch.launch.serve import prompts_for
+    from repro_torch.models import moe, registry
+    from repro_torch.serving import LLMEngine
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32 \
+        or torch.get_float32_matmul_precision() != "highest"
+    log(f"  TF32 matmuls {'ON' if tf32 else 'off'} (float32 matmul "
+        f"precision {torch.get_float32_matmul_precision()!r})")
+    cfg = dataclasses.replace(configs.smoke(SERVE_OLMOE["arch"]),
+                              dtype="float32")
+    gpu = registry.init_params(cfg, seed=3)
+    cpu = moe.cast_params(gpu, cfg, torch.device("cpu"))
+    ok = not tf32 and gpu["layers"][0]["router"].dtype == torch.float32
+    rng = np.random.default_rng(3)
+    toks = torch.tensor(rng.integers(0, cfg.vocab, (3, 40)))
+    i32 = dict(dtype=torch.int32)
+    outs = []
+    for params, dev in ((gpu, "cuda"), (cpu, "cpu")):
+        lg, kv = registry.prefill(params, cfg, toks.to(dev), cache_len=64)
+        steps = []
+        for t in range(3):
+            logits, kv = registry.decode_cached(
+                params, cfg, kv, torch.tensor([5 + t, 7, 9], **i32).to(dev),
+                torch.tensor([40 + t] * 3, **i32).to(dev))
+            steps.append(logits.cpu())
+        outs.append((lg.cpu(), torch.stack(steps), kv["k"].cpu()))
+    for what, g, c in zip(("prefill logits (3 x 40 tokens)",
+                           "decode logits (3 steps, 3 slots)",
+                           "cache after the steps"), *outs):
+        err = compare(g, c)
+        ok &= err[2]
+        log(f"  {what} card vs cpu: max_abs={err[0]:.3e} "
+            f"{'ok' if err[2] else 'MISMATCH'}")
+    prompts = prompts_for(cfg, 14, 3, 40, 3)
+    runs = []
+    for params, dev in ((gpu, None), (cpu, "cpu")):
+        llm = LLMEngine(params, cfg, slots=10, max_seq=64, device=dev)
+        runs.append(([o.tokens for o in llm.generate(
+            prompts, max_new_tokens=[4 + 2 * (i % 5) for i in range(14)])],
+            llm.stats()["steps"]))
+    same_ = runs[0] == runs[1]
+    log(f"  greedy streams card vs cpu (14 requests on 10 slots, decode "
+        f"capacity {moe.capacity(cfg, 10)}, steps {runs[0][1]} vs "
+        f"{runs[1][1]}): {'equal' if same_ else 'DIFFER'}")
+    return ok and same_
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -1910,9 +2076,15 @@ def main() -> int:
     request_counts.update(spec_counts)
     phase_s["serve lifecycle and spec"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    log("phase 4d: serve olmoe-1b-7b, the mixture of experts, on the "
+        "contiguous cache (reintegrated genomes)")
+    ok["serve olmoe"], olmoe_counts = phase_serve_moe()
+    phase_s["serve olmoe"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     log("phase 5: reference on a small input")
     ok["reference"] = phase_reference()
     ok["reference"] &= phase_reference_window()
+    ok["reference"] &= phase_reference_moe()
     phase_s["reference"] = time.perf_counter() - t0
     log("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                       for k, v in phase_s.items()))
@@ -1925,7 +2097,8 @@ def main() -> int:
                                    "serve_h2o": h2o_counts[name],
                                    "serve_oversubscribed": over_counts[name],
                                    **{path: c[name] for path, c
-                                      in request_counts.items()}}
+                                      in request_counts.items()},
+                                   "serve_olmoe": olmoe_counts[name]}
         # the main path: every run but the shipped-genome serve
         row["launches"] = sum(n for path, n in row["launches_by_path"]
                               .items() if path != "serve_shipped")

@@ -1,4 +1,5 @@
-"""Model configuration schema (the dense-decoder part of the JAX schema)."""
+"""Model configuration schema (the dense-decoder and MoE parts of the JAX
+schema)."""
 
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ class ModelConfig:
     """One architecture's dimensions; ``dtype`` is the compute type."""
 
     name: str
-    family: str                 # dense (the only family ported so far)
+    family: str                 # dense | moe (the families ported so far)
     n_layers: int
     d_model: int
     n_heads: int
@@ -33,6 +34,12 @@ class ModelConfig:
     qk_norm: bool = False
     window: Optional[int] = None          # sliding-window attention
     rope_theta: float = 10000.0
+
+    # MoE
+    n_experts: int = 0
+    top_k: int = 0
+    expert_ff: int = 0                    # d_ff per expert
+    capacity_factor: float = 1.25
 
     dtype: str = "bfloat16"
     norm_eps: float = 1e-6

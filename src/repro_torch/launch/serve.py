@@ -6,13 +6,20 @@ On the card (the default device):
         --requests 16 --slots 8 --max-new 32 --profile
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch h2o-danube-1.8b --max-prompt 2048 --crossing 2
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \
+        --profile
 On the CPU, at the reduced config:
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
 
 An architecture that can page (qwen2-0.5b) is served from the paged pool;
 a sliding-window one (h2o-danube-1.8b) from the contiguous cache, a
 window-row ring per slot, whose decode attention is the ``flash_decode``
-kernel. ``--max-seq`` defaults to 512, or twice the window.
+kernel. A mixture of experts (olmoe-1b-7b, granite-moe-3b-a800m) is
+served from the contiguous cache too, each prompt prefilled at its exact
+length: capacity routing couples the tokens of a batch and the slots of
+a step, so padding or paging would change its tokens. A prompt of more
+than 256 tokens must be a multiple of 256 (the dispatch group).
+``--max-seq`` defaults to 512, or twice the window.
 ``--num-pages`` below full subscription (slots * max_seq / page_size)
 oversubscribes the pool; ``--preemption swap|recompute`` says what
 happens to the requests it evicts. The paged pool keeps the radix prefix

@@ -1,2 +1,3 @@
-"""Model families of the port (the dense decoder so far), its registry,
-and the conversion of the JAX package's parameters."""
+"""Model families of the port (the dense decoder and the mixture of
+experts), its registry, and the conversion of the JAX package's
+parameters."""

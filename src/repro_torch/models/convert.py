@@ -1,11 +1,14 @@
 """Parameters of the JAX package, as numpy arrays, into the port's layout.
 
-The JAX dense decoder stacks every layer weight on a leading
-``[n_layers, ...]`` axis (its layers run under ``lax.scan``); the port
-keeps one dict per layer. Leaf names and the layout of each leaf are the
-same on both sides, so the conversion unstacks, copies and casts (matrix
-weights, embeddings and biases to the compute dtype, norm weights to
-fp32). The JAX tree itself is never imported here: the caller hands over
+The JAX families (the dense decoder and the mixture of experts) stack
+every layer weight on a leading ``[n_layers, ...]`` axis (their layers
+run under ``lax.scan``); the port keeps one dict per layer. Leaf names and
+the layout of each leaf are the same on both sides (an MoE layer: ``attn``,
+``router [D, E]``, ``w_gateup [E, D, 2F]``, ``w_down [E, F, D]``,
+``attn_norm``, ``mlp_norm``), so the conversion unstacks, copies and casts
+as the family's ``cast_params`` says (matrix weights, embeddings and
+biases to the compute dtype; norm weights, and the MoE router, in fp32).
+The JAX tree itself is never imported here: the caller hands over
 ``jax.tree.map(np.asarray, params)``.
 """
 
@@ -16,7 +19,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import registry
 
 
 def _unstack(tree, i: int):
@@ -41,4 +44,4 @@ def params_from_jax(np_tree: dict, cfg: ModelConfig, device=None) -> dict:
         "lm_head": torch.from_numpy(np.array(np_tree["lm_head"],
                                              np.float32)),
     }
-    return transformer.cast_params(tree, cfg, dev)
+    return registry.module_for(cfg).cast_params(tree, cfg, dev)

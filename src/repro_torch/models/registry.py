@@ -1,7 +1,10 @@
-"""Architecture registry, dense part: one API over the model families the
-port serves (so far the dense decoder of ``transformer.py``) and over
-both KV-cache layouts, the contiguous per-slot cache and the paged pool
-(with the radix prefix cache's suffix prefill and page copy).
+"""Architecture registry: one API over the model families the port serves
+(the dense decoder of ``transformer.py`` and the mixture of experts of
+``moe.py``) and over both KV-cache layouts, the contiguous per-slot cache
+and the paged pool (with the radix prefix cache's suffix prefill and page
+copy). A family's flags say what the serving engine may do with it:
+``pad_prefill_ok``, ``paged_ok`` and ``prefix_cache_ok`` are all False for
+the MoE family, whose capacity routing couples tokens and slots.
 
 ``init_params`` is an entry point: it builds on ``cuda`` unless the
 caller passes ``device="cpu"``.
@@ -13,9 +16,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import moe, transformer
 
-_FAMILY = {"dense": transformer}
+_FAMILY = {"dense": transformer, "moe": moe}
 
 
 def module_for(cfg: ModelConfig):

@@ -51,25 +51,47 @@ def _trunc_normal(shape, scale, gen, device):
         -2 * scale, 2 * scale)
 
 
-def cast_params(tree, cfg: ModelConfig, device):
+def cast_params(tree, cfg: ModelConfig, device, *, fp32=()):
     """Move a parameter tree to ``device``: norm weights (keys ending in
-    ``norm``) in fp32, everything else in the compute dtype."""
+    ``norm``) and the leaves named in ``fp32`` in fp32, everything else in
+    the compute dtype."""
     if isinstance(tree, list):
-        return [cast_params(t, cfg, device) for t in tree]
+        return [cast_params(t, cfg, device, fp32=fp32) for t in tree]
     out = {}
     for k, v in tree.items():
         if isinstance(v, (dict, list)):
-            out[k] = cast_params(v, cfg, device)
+            out[k] = cast_params(v, cfg, device, fp32=fp32)
         else:
-            dtype = torch.float32 if k.endswith("norm") else cfg.torch_dtype
+            keep = k.endswith("norm") or k in fp32
+            dtype = torch.float32 if keep else cfg.torch_dtype
             out[k] = v.to(device=device, dtype=dtype).contiguous()
     return out
+
+
+def attn_init(cfg: ModelConfig, normal) -> dict:
+    """One layer's attention weights in fp32, drawn through ``normal(shape,
+    scale)``, with the QKV bias and the qk-norm where the config has
+    them."""
+    d, hq, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    attn = {"wq": normal((d, hq, dh), d ** -0.5),
+            "wk": normal((d, hkv, dh), d ** -0.5),
+            "wv": normal((d, hkv, dh), d ** -0.5),
+            "wo": normal((hq, dh, d), (hq * dh) ** -0.5)}
+    dev = attn["wq"].device
+    if cfg.qkv_bias:
+        attn.update(bq=torch.zeros((hq, dh), device=dev),
+                    bk=torch.zeros((hkv, dh), device=dev),
+                    bv=torch.zeros((hkv, dh), device=dev))
+    if cfg.qk_norm:
+        attn.update(q_norm=torch.ones(dh, device=dev),
+                    k_norm=torch.ones(dh, device=dev))
+    return attn
 
 
 def init(cfg: ModelConfig, gen: torch.Generator, device) -> dict:
     """Random parameters with the JAX init's distributions, from ``gen``
     (which must live on ``device``)."""
-    d, hq, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    d = cfg.d_model
 
     def normal(shape, scale):
         return _trunc_normal(shape, scale, gen, device)
@@ -77,22 +99,10 @@ def init(cfg: ModelConfig, gen: torch.Generator, device) -> dict:
     def ones(n):
         return torch.ones(n, device=device)
 
-    def zeros(*shape):
-        return torch.zeros(shape, device=device)
-
     layers = []
     for _ in range(cfg.n_layers):
-        attn = {"wq": normal((d, hq, dh), d ** -0.5),
-                "wk": normal((d, hkv, dh), d ** -0.5),
-                "wv": normal((d, hkv, dh), d ** -0.5),
-                "wo": normal((hq, dh, d), (hq * dh) ** -0.5)}
-        if cfg.qkv_bias:
-            attn.update(bq=zeros(hq, dh), bk=zeros(hkv, dh),
-                        bv=zeros(hkv, dh))
-        if cfg.qk_norm:
-            attn.update(q_norm=ones(dh), k_norm=ones(dh))
         layers.append({
-            "attn": attn,
+            "attn": attn_init(cfg, normal),
             "mlp": {"w_gateup": normal((d, 2 * cfg.d_ff), d ** -0.5),
                     "w_down": normal((cfg.d_ff, d), cfg.d_ff ** -0.5)},
             "attn_norm": ones(d), "mlp_norm": ones(d)})
@@ -102,6 +112,11 @@ def init(cfg: ModelConfig, gen: torch.Generator, device) -> dict:
         "final_norm": ones(d),
         "lm_head": normal((d, cfg.padded_vocab), d ** -0.5),
     }, cfg, device)
+
+
+def dense_ffn(p, x):
+    """The dense layer's feed-forward sublayer: the SwiGLU MLP."""
+    return L.mlp_block(p["mlp"], x)
 
 
 # --------------------------------------------------------------------------
@@ -142,8 +157,17 @@ def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
             in paged_cache_spec(cfg, num_pages, page_size).items()}
 
 
+def _last_position(hidden, residual, s: int, length):
+    """``[B, 1, D]`` copies of the position ``length - 1`` (a prompt
+    right-padded to a bucket) or of the last one, contiguous as the norm
+    kernel takes them (a slice of a batch of prompts is not)."""
+    last = s if length is None else int(length)
+    return (hidden[:, last - 1:last].contiguous(),
+            residual[:, last - 1:last].contiguous())
+
+
 def prefill(params, cfg: ModelConfig, tokens, *, length: int | None = None,
-            cache_len: int | None = None):
+            cache_len: int | None = None, ffn=dense_ffn):
     """Process a prompt batch ``tokens [B, S]``. Returns (logits ``[B,
     V_pad]`` at position ``length - 1`` -- the true length of a prompt
     right-padded to a bucket -- or at the last position, and the cache
@@ -152,7 +176,9 @@ def prefill(params, cfg: ModelConfig, tokens, *, length: int | None = None,
     For a sliding-window config and S > window, the cache keeps the last
     ``window`` positions, each at row ``pos % window`` (S' = window).
     ``cache_len`` zero-pads the cache to that many rows (capped at the
-    window), ready for later decode steps."""
+    window), ready for later decode steps. ``ffn(p_layer, normed)`` is
+    the feed-forward sublayer (the MoE family passes its routed
+    experts)."""
     b, s = tokens.shape
     hidden = L.embed_tokens(params["embed"], tokens).to(cfg.torch_dtype)
     residual = torch.zeros_like(hidden)
@@ -163,7 +189,7 @@ def prefill(params, cfg: ModelConfig, tokens, *, length: int | None = None,
         attn_out, (k, v) = L.attention_block(p["attn"], normed, cfg)
         normed, residual = L.add_rms_norm(attn_out, residual, p["mlp_norm"],
                                           cfg.norm_eps)
-        hidden = L.mlp_block(p["mlp"], normed)
+        hidden = ffn(p, normed)
         ks.append(k)
         vs.append(v)
     ks, vs = torch.stack(ks), torch.stack(vs)
@@ -177,9 +203,7 @@ def prefill(params, cfg: ModelConfig, tokens, *, length: int | None = None,
         pad = (0, 0, 0, 0, 0, target - ks.shape[2])
         ks = torch.nn.functional.pad(ks, pad)
         vs = torch.nn.functional.pad(vs, pad)
-    last = s if length is None else int(length)
-    normed, _ = L.add_rms_norm(hidden[:, last - 1:last],
-                               residual[:, last - 1:last],
+    normed, _ = L.add_rms_norm(*_last_position(hidden, residual, s, length),
                                params["final_norm"], cfg.norm_eps)
     logits = L.unembed(normed[:, 0], params["lm_head"])
     return logits, {"k": ks, "v": vs}
@@ -221,22 +245,22 @@ def prefill_suffix(params, cfg: ModelConfig, tokens, prefix, *,
         hidden = L.mlp_block(p["mlp"], normed)
         ks.append(k)
         vs.append(v)
-    last = s if length is None else int(length)
-    normed, _ = L.add_rms_norm(hidden[:, last - 1:last],
-                               residual[:, last - 1:last],
+    normed, _ = L.add_rms_norm(*_last_position(hidden, residual, s, length),
                                params["final_norm"], cfg.norm_eps)
     logits = L.unembed(normed[:, 0], params["lm_head"])
     return logits, {"k": torch.stack(ks), "v": torch.stack(vs)}
 
 
-def decode_step(params, cfg: ModelConfig, cache, token, pos):
+def decode_step(params, cfg: ModelConfig, cache, token, pos, *,
+                ffn=dense_ffn):
     """One decode step over the contiguous cache, in place.
 
     cache: ``{"k","v": [L, B, S, Hkv, dh]}``; token, pos: ``[B]`` int32.
     The new token's K/V goes to row ``pos % window`` (a sliding-window
     ring) or ``pos`` (dropped past S), and attention reads
     ``min(pos + 1, window)`` or ``pos + 1`` rows through the
-    ``flash_decode`` kernel. Returns (logits ``[B, V_pad]``, cache)."""
+    ``flash_decode`` kernel. ``ffn`` as for ``prefill``. Returns (logits
+    ``[B, V_pad]``, cache)."""
     hidden = L.embed_tokens(params["embed"], token[:, None]) \
         .to(cfg.torch_dtype)                                    # [B,1,D]
     residual = torch.zeros_like(hidden)
@@ -257,7 +281,7 @@ def decode_step(params, cfg: ModelConfig, cache, token, pos):
         attn_out = L.out_proj(p["attn"], o[:, None], o.dtype)
         normed, residual = L.add_rms_norm(attn_out, residual, p["mlp_norm"],
                                           cfg.norm_eps)
-        hidden = L.mlp_block(p["mlp"], normed)
+        hidden = ffn(p, normed)
     normed, _ = L.add_rms_norm(hidden, residual, params["final_norm"],
                                cfg.norm_eps)
     return L.unembed(normed[:, 0], params["lm_head"]), cache

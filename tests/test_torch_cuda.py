@@ -81,6 +81,22 @@ def test_silu_and_mul_matches_plain(dev, rows, d, dtype):
     _close(out, ref.silu_and_mul(x), dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(64, 8, 2048), (64, 40, 2048),
+                                   (40, 24, 1024), (4, 3, 200)], ids=str)
+def test_silu_and_mul_on_the_expert_tensor_matches_plain(dev, shape, dtype):
+    """The MoE layer's call: the experts' ``[E, rows, 2 * expert_ff]``
+    tensor in one launch (olmoe's decode and 256-token prefill, granite's
+    prefill, a ragged width)."""
+    x = _randn(shape, dtype, dev, 4, scale=3.0)
+    n0 = silu_and_mul.silu_and_mul.launches
+    out = ops.silu_and_mul(x)
+    torch.cuda.synchronize()
+    assert silu_and_mul.silu_and_mul.launches == n0 + 1
+    assert out.shape == (*shape[:2], shape[2] // 2)
+    _close(out, ref.silu_and_mul(x), dtype)
+
+
 def _bool_genomes(base, *flags):
     """``base`` with every combination of the bool ``flags``."""
     return [dataclasses.replace(base, name="-".join(
@@ -494,6 +510,20 @@ def test_flash_decode_matches_plain(dev, shape, dtype, chunk, mask_oob,
            dtype, DECODE_TOL)
     if mask_oob:
         assert (got[0] == 0).all()                  # kv_len 0: no row
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_at_the_olmoe_decode_shape(dev, dtype):
+    """olmoe-1b-7b's decode attention: 8 slots, 16 query and 16 kv heads
+    (group 1) of 128 on a 512-row cache, the shipped genome against its
+    plain version at the decode tolerance; kv_len 0, 1 and 512
+    included."""
+    genome = ops.get_variant("flash_decode")
+    q, k, v, lens = flash_case(8, 16, 16, 128, 512, dtype, dev, seed=7)
+    got = ops.flash_decode_attention(q, k, v, kv_len=lens)
+    torch.cuda.synchronize()
+    _close(got, flash_decode.plain(genome, q, k, v, lens, 128 ** -0.5),
+           dtype, DECODE_TOL)
 
 
 def test_flash_decode_reads_misaligned_caches_and_clamps_kv_len(dev):
@@ -989,7 +1019,8 @@ def _want_launches(cfg, paged, steps, prefills, warmups=0):
 
 SERVE_CASES = [("qwen2-0.5b", dict(max_seq=256), [5, 40, 17, 60, 9], 12),
                ("h2o-danube-1.8b", dict(max_seq=192), [5, 40, 60, 100, 70],
-                30)]
+                30),
+               ("olmoe-1b-7b", dict(max_seq=128), [5, 40, 17, 60, 9], 12)]
 
 
 @pytest.mark.parametrize("arch,kw,lens,max_new", SERVE_CASES,
@@ -1286,3 +1317,50 @@ def test_recovery_on_the_card_keeps_the_graph_buffers(dev):
     assert probe.recoveries == 1
     assert [t.data_ptr() for t in tensors] == ptrs
     assert {r.rid: list(r.out_tokens) for r in probe.finished} == card
+
+
+# -- the mixture of experts ---------------------------------------------------
+
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "olmoe-1b-7b"])
+def test_a_batched_prefill_on_the_card_matches_the_cpu(dev, arch):
+    """fp32, reduced config: a prefill of three prompts at once (the
+    final position's rows are a slice of the batch, copied contiguous for
+    the norm kernel) gives the CPU's logits and cache."""
+    from repro_torch.models import registry as models
+    cfg, params = _smoke(arch)
+    gpu = models.module_for(cfg).cast_params(params, cfg, dev)
+    toks = torch.tensor(np.random.default_rng(6).integers(0, cfg.vocab,
+                                                          (3, 40)))
+    lg, kv = models.prefill(gpu, cfg, toks.to(dev), cache_len=64)
+    torch.cuda.synchronize()
+    want, want_kv = models.prefill(params, cfg, toks, cache_len=64)
+    _close(lg, want, torch.float32)
+    _close(kv["k"], want_kv["k"], torch.float32)
+
+
+def test_captured_moe_step_equals_the_eager_card_step(dev):
+    """fp32, reduced olmoe on 10 slots, more than its decode capacity of
+    8, so that the rows of every slot, idle ones included, compete for
+    the experts: the engine replaying its captured step gives the streams
+    and steps of the same engine stepping eagerly on the card, and of the
+    CPU engine; one capture, one replay and one readback a step, and the
+    router stays fp32."""
+    cfg, params = _smoke("olmoe-1b-7b")
+    lens = [5, 40, 17, 60, 9, 33, 21, 12, 48, 7, 26, 15, 38, 3]
+    kw = dict(slots=10, max_seq=128)
+    card, eng = _serve(params, cfg, dev, lens, 12, **kw)
+    from repro_torch.serving import Engine, Request
+    eager = _eager_on_the_card(Engine(params, cfg, device=dev, **kw))
+    rng = np.random.default_rng(5)
+    for rid, n in enumerate(lens):
+        eager.submit(Request(rid=rid, prompt=rng.integers(0, cfg.vocab, n),
+                             max_new_tokens=12))
+    eager.run()
+    cpu, ceng = _serve(params, cfg, "cpu", lens, 12, **kw)
+    st = eng.stats()
+    assert card == {r.rid: list(r.out_tokens) for r in eager.finished} \
+        == cpu
+    assert st["steps"] == eager.stats()["steps"] == ceng.stats()["steps"]
+    assert not st["paged"] and st["decode_captures"] == 1
+    assert st["graph_replays"] == st["readbacks"] == st["steps"] > 0
+    assert eng.params["layers"][0]["router"].dtype == torch.float32

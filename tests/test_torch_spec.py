@@ -461,7 +461,8 @@ def test_spec_config_and_make_drafter_checks(fp32):
         make_drafter(SpecConfig("draft_model", draft_params=tparams,
                                 draft_cfg=small), cfg, 2, 64, "cpu")
     moe = dataclasses.replace(cfg, family="moe")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="draft family 'moe' has no exact "
+                       "right-padded prefill"):
         make_drafter(SpecConfig("draft_model", draft_params=tparams,
                                 draft_cfg=moe), cfg, 2, 64, "cpu")
 
