@@ -16,7 +16,11 @@ Phases, each of which fails the run (non-zero exit) on any error:
    never calls it). The shipped genomes at the olmoe-1b-7b shapes too
    (silu on the 3-D expert tensor of a decode step and of a 256-token
    prefill, rmsnorm at width 2048, flash_decode at head_dim 128, group
-   1). The shipped genomes, and the baseline genomes; the
+   1); the paged decode at the dense qk-norm configs' heads (8 slots of
+   512 rows, 32/8, 56/8 and 64/8 heads of 128: qwen3-8b, yi-34b,
+   chameleon-34b) and flash_decode at recurrentgemma-2b's (8 slots, 10/1
+   heads of 256, a 2,048-row ring; in fp32 on the ring of one slot), the
+   latter beside SDPA. The shipped genomes, and the baseline genomes; the
    split-KV decode kernels' launch plans (splits, grid) first, and after
    the timings both decode kernels checked for every genome of their
    flags at kv_len 0, 1, the cache's rows and each split boundary +- 1,
@@ -128,11 +132,30 @@ Phases, each of which fails the run (non-zero exit) on any error:
    weight bytes, the capture and its graph pool, the mean decode step
    beside its bound (every weight but the embedding table read once a
    step, over the card's memory rate), tok_s and ttft.
-5. Reference: on the reduced qwen2, h2o-danube and olmoe configs in fp32,
-   the port's logits (the h2o ones past the window and after the ring
-   wraps) and greedy streams on the card agree with its plain versions on
-   the CPU; the olmoe streams on more slots than the decode capacity, with
-   TF32 off (a TF32 router would pick other experts on the card).
+4e. The other configs at full width in bf16 (seeded weights drawn and
+   cast one layer at a time) with the reintegrated genomes, 8 slots:
+   qwen3-8b from the paged pool on phase 4's requests; recurrentgemma-2b
+   (its RG-LRU gates in fp32) from the contiguous cache, 16 greedy
+   requests of 32 tokens, prompts of up to 3,072 tokens (two just under
+   the 2,048-row window, two past it), max_seq 4,096, each prefilled at
+   exact length; then yi-34b and chameleon-34b from the paged pool on
+   phase 4's requests, each alone on the card (every earlier model and
+   engine freed first), at full depth, or where that does not fit beside
+   the cache at the largest depth that does (logged, never silent). Each
+   checks what phase 4 checks (one capture, ``readbacks == steps ==
+   graph_replays``, launch counts per family: recurrentgemma launches no
+   rmsnorm, silu once a layer a pass and flash_decode once an attention
+   layer a decode pass) and prints the decode step beside its bound
+   (every weight but the embedding table read once a step), tok_s, ttft
+   and the peak memory.
+5. Reference: on the reduced qwen2, h2o-danube, olmoe, qwen3-8b and
+   recurrentgemma-2b configs in fp32, the port's logits (the h2o and
+   recurrentgemma ones past the window and after the ring wraps), caches
+   and greedy streams on the card agree with its plain versions on the
+   CPU; the olmoe streams on more slots than the decode capacity, with
+   TF32 off (a TF32 router would pick other experts on the card), and
+   recurrentgemma's with its conv weights drawn non-zero (at init they
+   are zero and the recurrence would see no input).
 
 ``--time-serve SRC ARCH`` runs no phase: it serves phase 4's fully
 subscribed workload of ARCH (qwen2-0.5b, h2o-danube-1.8b or
@@ -141,7 +164,10 @@ package under SRC (this tree's ``src``, or a checkout of the parent
 commit), times every engine step on the host, and prints one JSON line:
 tok_s, ttft, steps, and the mean wall time of a step that admits nothing
 (its decode dispatch and the previous step's readback), so two commits'
-engines compare in one call.
+engines compare in one call. ``--time-decode SRC`` likewise times rows 3
+and 5 of the kernel table in bf16 (the installed genomes at their main
+shapes, and kernel 5 at recurrentgemma-2b's) with the package under SRC
+and prints them with the spilling kernels of its build, one JSON line.
 
 The line before the last holds the card's name and power limit; the line
 before that one JSON object with one row per kernel; the last line is
@@ -153,6 +179,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import gc
 import json
 import os
 import sys
@@ -182,6 +209,13 @@ SERVE_H2O = dict(SERVE, arch="h2o-danube-1.8b", max_seq=8192,
 # olmoe-1b-7b on phase 4's requests: the contiguous cache (auto), exact
 # prefill lengths
 SERVE_OLMOE = dict(SERVE, arch="olmoe-1b-7b")
+# phase 4e: the dense qk-norm configs on phase 4's requests (paged), and
+# recurrentgemma-2b with prompts to 3,072 tokens, two just under its
+# 2,048-row window and two past it (the contiguous cache, exact prefill)
+SERVE_QWEN3 = dict(SERVE, arch="qwen3-8b")
+SERVE_RGEMMA = dict(SERVE, arch="recurrentgemma-2b", max_seq=4096,
+                    max_prompt=3072, crossing=2)
+SERVE_34B = (dict(SERVE, arch="yi-34b"), dict(SERVE, arch="chameleon-34b"))
 # 48 pages of 16 rows against 8 slots x 512 rows (256 pages): swap
 SERVE_OVER = dict(SERVE, num_pages=48, preemption="swap")
 # phase 4's requests, every other one sampled with its own seed
@@ -396,6 +430,7 @@ def kernel_cases():
                     hq == 32 and g is not fd.BASELINE,
                     sdpa(q, k, v, n) if g is not fd.BASELINE else None))
         cases += moe_cases(dtype)
+        cases += config_cases(dtype)
         for shape in ({"seq": 512, "heads": 32, "head_dim": 256},
                       {"seq": 768, "heads": 32, "head_dim": 256},
                       {"seq": 100, "heads": 7, "head_dim": 128}):
@@ -460,6 +495,58 @@ def moe_cases(dtype):
                   lambda: fd.plain(g, q, k, v, n, dh ** -0.5),
                   nbytes, 4 * sum(lens) * hq * dh, False, False,
                   sdpa(q, k, v, n)))
+    return cases
+
+
+def config_cases(dtype):
+    """The shapes of phase 4e's decodes (the installed genomes), in
+    kernel_cases' form: the paged decode at 8 slots of 512 rows (16-row
+    pages, ragged lengths) with qwen3-8b's, yi-34b's and chameleon-34b's
+    heads (32, 56 and 64 query heads on 8 kv heads of 128: groups 4, 7
+    and 8), and flash_decode at recurrentgemma-2b's (8 slots, 10 query
+    heads on one kv head of 256: group 10, two query subgroups) over a
+    full 2,048-row ring, beside SDPA."""
+    from repro_torch import configs
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import ops
+    es = torch.tensor([], dtype=dtype).element_size()
+    cases = []
+    b, page = SERVE_QWEN3["slots"], SERVE_QWEN3["page_size"]
+    n_pt = SERVE_QWEN3["max_seq"] // page
+    pg = ops.get_variant("paged_flash_decode")
+    for s in (SERVE_QWEN3,) + SERVE_34B:
+        cfg = configs.get(s["arch"])
+        hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        q, k, v, table, lens = paged_inputs(b, hq, hkv, dh, page, n_pt,
+                                            dtype, seed=hq)
+        rows = int(lens.sum())
+        n_tab = int(sum(-(-int(n) // page) for n in lens))
+        cases.append((
+            "paged_flash_decode", f"{cfg.name} b={b} hq/hkv={hq}/{hkv} "
+            f"d={dh} page={page} kv_len={lens.tolist()} {pg.describe()}",
+            dtype,
+            lambda q=q, k=k, v=v, t=table, n=lens:
+                fd.paged_flash_decode_attention(q, k, v, t, kv_len=n,
+                                                variant=pg),
+            lambda q=q, k=k, v=v, t=table, n=lens:
+                fd.paged_plain(pg, q, k, v, t, n, q.shape[-1] ** -0.5),
+            2 * b * hq * dh * es + 2 * rows * hkv * dh * es + 4 * n_tab
+            + 4 * b, 4 * rows * hq * dh, False, False, None))
+    cfg = configs.get(SERVE_RGEMMA["arch"])
+    hq, hkv, dh, s = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.window
+    lens = [s] * b
+    q, k, v, n = flash_inputs(b, hq, hkv, dh, s, lens, dtype, seed=11)
+    g = ops.get_variant("flash_decode")
+    plan = fd.launch_plan(g, batch=b, q_heads=hq, kv_heads=hkv,
+                          head_dim=dh, seq=s, dtype=dtype)
+    cases.append((
+        "flash_decode", f"{cfg.name} b={b} hq/hkv={hq}/{hkv} d={dh} s={s} "
+        f"kv_len={s} {g.describe()} (ring of {plan['stages']} slots, "
+        f"{plan['smem']} B a block)", dtype,
+        lambda: fd.flash_decode_attention(q, k, v, kv_len=n, variant=g),
+        lambda: fd.plain(g, q, k, v, n, dh ** -0.5),
+        2 * b * hq * dh * es + 2 * b * s * hkv * dh * es + 4 * b,
+        4 * b * s * hq * dh, False, False, sdpa(q, k, v, n)))
     return cases
 
 
@@ -1237,9 +1324,9 @@ _PARAMS: dict = {}
 
 
 def serve_params(cfg, seed: int):
-    """Seeded full-width weights, made once per (arch, seed)."""
+    """Seeded full-width weights, made once per (arch, depth, seed)."""
     from repro_torch.models import registry
-    key = (cfg.name, seed)
+    key = (cfg.name, cfg.n_layers, seed)
     if key not in _PARAMS:
         t0 = time.perf_counter()
         _PARAMS[key] = registry.init_params(cfg, seed=seed)
@@ -1247,6 +1334,8 @@ def serve_params(cfg, seed: int):
         ff = (f"{cfg.n_experts} experts top-{cfg.top_k} of expert_ff "
               f"{cfg.expert_ff}" if cfg.family == "moe"
               else f"d_ff {cfg.d_ff}")
+        if cfg.family == "hybrid":
+            ff += f", lru_width {cfg.lru_width}"
         log(f"  {cfg.name} full width ({cfg.n_layers} layers, d_model "
             f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, {ff}, "
             f"vocab {cfg.padded_vocab}, window {cfg.window}) "
@@ -1264,22 +1353,40 @@ def param_bytes(tree) -> int:
     return tree.numel() * tree.element_size()
 
 
+def free_models() -> None:
+    """Drop every cached model and return the allocator's free blocks to
+    the card: a 34B model in bf16 needs the card to itself."""
+    _PARAMS.clear()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def serve_config(s: dict):
+    """The config phase 4 serves for ``s``: ``s["arch"]`` at full width,
+    at ``s["n_layers"]`` layers where ``s`` cuts the depth."""
+    from repro_torch import configs
+    cfg = configs.get(s["arch"])
+    if s.get("n_layers"):
+        cfg = dataclasses.replace(cfg, n_layers=s["n_layers"])
+    return cfg
+
+
 def phase_serve(label: str, s: dict) -> tuple[bool, dict, list, dict]:
     """Serve ``s["requests"]`` requests of ``s["max_new"]`` tokens on
     ``s["arch"]`` at full width; returns (ok, launch counts of the run,
-    the streams, the metrics). ``s`` may name ``num_pages`` (an
-    oversubscribed pool), ``paged=False`` (the contiguous cache),
-    ``sampled`` (every other request sampled with ``SAMPLED`` and its own
-    seed), ``shared`` (the shared-prefix prompts), ``prefix_cache`` (off
-    when False), ``scheduler`` and ``priorities`` (``"rid"``: the JAX
-    benchmark's ``(rid * 5) % 3``)."""
-    from repro_torch import configs
+    the streams, the metrics). ``s`` may name ``n_layers`` (a cut depth),
+    ``num_pages`` (an oversubscribed pool), ``paged=False`` (the
+    contiguous cache), ``sampled`` (every other request sampled with
+    ``SAMPLED`` and its own seed), ``shared`` (the shared-prefix
+    prompts), ``prefix_cache`` (off when False), ``scheduler`` and
+    ``priorities`` (``"rid"``: the JAX benchmark's ``(rid * 5) % 3``)."""
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import (measure, prompts_for,
                                           shared_prefix_prompts)
     from repro_torch.serving import SamplingParams
 
-    cfg = configs.get(s["arch"])
+    cfg = serve_config(s)
     params = serve_params(cfg, s["seed"])
     if s.get("shared"):
         prompts = shared_prefix_prompts(cfg, s["seed"])
@@ -1375,15 +1482,15 @@ def phase_serve(label: str, s: dict) -> tuple[bool, dict, list, dict]:
     return ok, m["launches"], [o.tokens for o in outs], m
 
 
-def phase_serve_moe() -> tuple[bool, dict]:
-    """4d: olmoe-1b-7b at full width on the contiguous cache (phase_serve
-    with SERVE_OLMOE), its prefills at exact length, and its decode step
-    beside the step's bound: every weight but the embedding table read
-    once (the table's rows of the step's tokens aside; the KV rows left
-    out), over the card's memory rate. Returns (ok, launch counts)."""
-    from repro_torch import configs
-    s = SERVE_OLMOE
-    cfg = configs.get(s["arch"])
+def phase_serve_bound(s: dict) -> tuple[bool, dict, dict]:
+    """``phase_serve`` of ``s`` with the reintegrated genomes, its decode
+    step beside the step's bound (every weight but the embedding table
+    read once, and the table's rows of the step's tokens, over the card's
+    memory rate; the KV rows left out) and, for a family that prefills at
+    exact length, the check that it did. Returns (ok, launch counts, the
+    metrics)."""
+    from repro_torch.models import registry
+    cfg = serve_config(s)
     ok, counts, _, m = phase_serve("reintegrated genomes", s)
     params = serve_params(cfg, s["seed"])
     emb = params["embed"]
@@ -1391,19 +1498,60 @@ def phase_serve_moe() -> tuple[bool, dict]:
         + s["slots"] * emb.shape[1] * emb.element_size()
     bound_ms = step_bytes / HBM_BYTES_S * 1e3
     step_ms = 1e3 * m["decode_step_s"]
-    log(f"  olmoe decode step {step_ms:.3f} ms against its bound "
-        f"{bound_ms:.3f} ms ({step_bytes / 1e9:.3f} GB a step at "
-        f"{HBM_BYTES_S / 1e12:.2f} TB/s; {100 * bound_ms / step_ms:.1f}% "
-        f"of the bound); tok_s={m['tok_s']:.1f} "
-        f"mean_ttft_s={m['ttft_s']:.4f}; peak_mem_GiB="
+    m.update(bound_ms=bound_ms, step_bytes=step_bytes)
+    log(f"  {cfg.name} ({cfg.n_layers} layers) decode step {step_ms:.3f} ms"
+        f" against its bound {bound_ms:.3f} ms ({step_bytes / 1e9:.3f} GB "
+        f"a step at {HBM_BYTES_S / 1e12:.2f} TB/s; "
+        f"{100 * bound_ms / step_ms:.1f}% of the bound); tok_s="
+        f"{m['tok_s']:.1f} mean_ttft_s={m['ttft_s']:.4f}; peak_mem_GiB="
         f"{m['peak_mem_gib']:.2f}")
-    lengths = len(set(m["prompt_lens"]))
-    exact = not m["paged"] and len(m["prefill_buckets"]) == lengths \
-        and set(m["prefill_buckets"]) == set(m["prompt_lens"])
-    log(f"  contiguous cache, {len(m['prefill_buckets'])} prefill shapes "
-        f"for {lengths} prompt lengths (exact-length prefill): "
-        f"{'ok' if exact else 'WRONG'}")
-    return ok and exact, counts
+    if not registry.pad_prefill_ok(cfg):
+        lengths = len(set(m["prompt_lens"]))
+        exact = not m["paged"] and len(m["prefill_buckets"]) == lengths \
+            and set(m["prefill_buckets"]) == set(m["prompt_lens"])
+        log(f"  contiguous cache, {len(m['prefill_buckets'])} prefill "
+            f"shapes for {lengths} prompt lengths (exact-length prefill): "
+            f"{'ok' if exact else 'WRONG'}")
+        ok &= exact
+    return ok, counts, m
+
+
+def phase_serve_configs() -> tuple[dict, dict]:
+    """4e: qwen3-8b and recurrentgemma-2b at full width and depth, then
+    yi-34b and chameleon-34b, each alone on the card, at full depth or
+    the largest of 3/4 and 1/2 of it that fits beside the cache (an
+    out-of-memory error is logged, never silent). Returns (ok by path,
+    launch counts by path)."""
+    ok, counts = {}, {}
+    for s in SERVE_34B:
+        counts["serve_" + s["arch"].split("-")[0]] = dict.fromkeys(SOURCES, 0)
+    for path, s in (("serve_qwen3", SERVE_QWEN3),
+                    ("serve_recurrentgemma", SERVE_RGEMMA)):
+        ok[path], counts[path], _ = phase_serve_bound(s)
+    for s in SERVE_34B:
+        path = "serve_" + s["arch"].split("-")[0]
+        full = serve_config(s).n_layers
+        ok[path] = False
+        for depth in (full, 3 * full // 4, full // 2):
+            free_models()
+            log(f"  {s['arch']} at {depth} of {full} layers, alone on the "
+                f"card ({torch.cuda.mem_get_info()[0] / 2**30:.2f} GiB "
+                "free)")
+            try:
+                ok[path], counts[path], _ = phase_serve_bound(
+                    dict(s, n_layers=depth))
+            except RuntimeError as e:
+                if "out of memory" not in str(e):
+                    raise
+                log(f"  {s['arch']} at {depth} layers does not fit: "
+                    f"{str(e).splitlines()[0]}")
+                continue
+            if depth < full:
+                log(f"  {s['arch']}: CUT to {depth} of {full} layers, the "
+                    "largest depth that fit")
+            break
+        free_models()
+    return ok, counts
 
 
 def same(what: str, a, b) -> bool:
@@ -1459,11 +1607,23 @@ def chaos_prompts(cfg, s: dict) -> list:
                       np.ones(s["max_seq"], np.int32)]
 
 
+def launches_a_pass(cfg) -> tuple[int, int, int]:
+    """(rmsnorm calls, silu launches, decode-attention launches) of one
+    forward pass of ``cfg``: a dense or MoE layer calls the norm twice
+    (and the final norm once), silu once, and in a decode pass the
+    attention once; the Griffin hybrid's norms are plain, every layer's
+    MLP launches silu, and only its attention layers (one a period of
+    three) launch the attention."""
+    if cfg.family == "hybrid":
+        return 0, cfg.n_layers, cfg.n_layers // 3
+    return 2 * cfg.n_layers + 1, cfg.n_layers, cfg.n_layers
+
+
 def expected_launches(cfg, m: dict, k: int = 0, draft=None) -> dict:
     """What a serve's kernels launch, from its counts: every prefill
-    (whole or suffix) and every decode pass launches the norms 2L+1 times
-    (twice each for a two-pass rmsnorm) and silu L times, and a decode
-    pass the layout's attention L times. A spec step (``k`` drafts) makes
+    (whole or suffix) and every decode pass launches the norms and silu,
+    and a decode pass the layout's attention, as ``launches_a_pass`` says
+    (a two-pass rmsnorm twice a call). A spec step (``k`` drafts) makes
     k + 1 target passes and, with a ``draft`` model config, k + 1 draft
     passes (contiguous ``flash_decode``) and one draft prefill per
     prefill. The merge is not on the path."""
@@ -1481,10 +1641,10 @@ def expected_launches(cfg, m: dict, k: int = 0, draft=None) -> dict:
     models = [(cfg, attn)] + ([(draft, "flash_decode")]
                               if draft is not None else [])
     for c, kernel in models:
-        want["fused_add_rmsnorm"] += norm * (2 * c.n_layers + 1) \
-            * (passes + prefills)
-        want["silu_and_mul"] += c.n_layers * (passes + prefills)
-        want[kernel] += c.n_layers * passes
+        norms, silu, attn_calls = launches_a_pass(c)
+        want["fused_add_rmsnorm"] += norm * norms * (passes + prefills)
+        want["silu_and_mul"] += silu * (passes + prefills)
+        want[kernel] += attn_calls * passes
     return want
 
 
@@ -1807,6 +1967,38 @@ def time_serve(arch: str) -> dict:
             "decode_step_ms_median": 1e3 * float(np.median(decode))}
 
 
+def time_decode() -> dict:
+    """``--time-decode``: rows 3 and 5 of the kernel table in bf16 with
+    the installed genomes (the paged decode at qwen2's shape, the
+    contiguous one at h2o-danube's) and kernel 5 at recurrentgemma-2b's
+    (10/1 heads of 256, 2,048 rows), through the ``repro_torch`` first on
+    ``sys.path`` after its library is built or loaded, with the kernels of
+    that build that spill. Uses only what earlier commits' packages have
+    too."""
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import flash_decode as fd
+    _build.library()
+    info = _build.build_info
+    bf = torch.bfloat16
+    out = {"build_s": info["seconds"], "cached": info["cached"],
+           "spills": [r for r in ptxas_kernels(info["log"]) if r[2]]}
+    q, k, v, t, n = paged_inputs(8, 14, 2, 64, 16, SERVE["max_seq"] // 16,
+                                 bf)
+    g3 = ops.get_variant("paged_flash_decode")
+    out["row3_us"] = 1e3 * device_ms(
+        lambda: fd.paged_flash_decode_attention(q, k, v, t, kv_len=n,
+                                                variant=g3))
+    g5 = ops.get_variant("flash_decode")
+    for key, (hq, hkv, dh, s) in (("row5_us", (32, 8, 80, 4096)),
+                                  ("recurrentgemma_us", (10, 1, 256, 2048))):
+        q5, k5, v5, n5 = flash_inputs(8, hq, hkv, dh, s, [s] * 8, bf,
+                                      seed=11)
+        out[key] = 1e3 * device_ms(
+            lambda: fd.flash_decode_attention(q5, k5, v5, kv_len=n5,
+                                              variant=g5))
+    return out
+
+
 def phase_reference() -> bool:
     """Reduced qwen2 config in fp32: prefill and decode logits and the
     greedy streams on the card against the plain versions on the CPU."""
@@ -1965,6 +2157,102 @@ def phase_reference_moe() -> bool:
     return ok and same_
 
 
+def phase_reference_configs() -> bool:
+    """Reduced qwen3-8b (qk-norm) and recurrentgemma-2b (window 32, its
+    conv weights drawn non-zero: seeded normal times 0.5) in fp32:
+    prefill logits and every cache leaf for three prompts of 45 tokens
+    (past the window), then 40 decode steps (the ring wraps) of logits
+    and leaves on three slots of the contiguous cache, and greedy streams
+    of prompts under and past the window, on the card against the plain
+    versions on the CPU."""
+    from repro_torch import configs
+    from repro_torch.launch.serve import prompts_for
+    from repro_torch.models import registry
+    from repro_torch.serving import LLMEngine
+
+    ok = True
+    for arch, seed in (("qwen3-8b", 4), ("recurrentgemma-2b", 5)):
+        cfg = dataclasses.replace(configs.smoke(arch), dtype="float32")
+        cpu = registry.init_params(cfg, seed=seed, device="cpu")
+        if cfg.family == "hybrid":
+            gen = torch.Generator().manual_seed(seed)
+            for block in [b for p in cpu["periods"] for b in p["rec"]] \
+                    + cpu["tail"]:
+                block["conv_w"] = 0.5 * torch.randn(block["conv_w"].shape,
+                                                    generator=gen)
+        mod = registry.module_for(cfg)
+        gpu = mod.cast_params(cpu, cfg, torch.device("cuda"))
+        rng = np.random.default_rng(seed)
+        toks = torch.tensor(rng.integers(0, cfg.vocab, (3, 45)))
+        feed = rng.integers(0, cfg.vocab, (40, 3))
+        outs = []
+        for params, dev in ((gpu, "cuda"), (cpu, "cpu")):
+            lg, kv = registry.prefill(params, cfg, toks.to(dev),
+                                      cache_len=96)
+            # copies: the steps below update the cache in place
+            first = {k: v.to("cpu", copy=True) for k, v in kv.items()}
+            steps = []
+            for t in range(40):
+                logits, kv = registry.decode_cached(
+                    params, cfg, kv,
+                    torch.tensor(feed[t], dtype=torch.int32, device=dev),
+                    torch.tensor([45 + t] * 3, dtype=torch.int32,
+                                 device=dev))
+                steps.append(logits.cpu())
+            outs.append((lg.cpu(), first, torch.stack(steps),
+                         {k: v.cpu() for k, v in kv.items()}))
+        (lg_g, first_g, steps_g, last_g), (lg_c, first_c, steps_c,
+                                           last_c) = outs
+        checks = [("prefill logits (3 x 45 tokens)", lg_g, lg_c),
+                  ("decode logits (40 steps, 3 slots)", steps_g, steps_c)]
+        checks += [(f"cache leaf {k} after prefill", first_g[k], first_c[k])
+                   for k in first_c]
+        checks += [(f"cache leaf {k} after the steps", last_g[k], last_c[k])
+                   for k in last_c]
+        for what, g, c in checks:
+            err = compare(g, c)
+            ok &= err[2]
+            log(f"  {arch} {what} card vs cpu: max_abs={err[0]:.3e} "
+                f"{'ok' if err[2] else 'MISMATCH'}")
+        window = cfg.window or 0
+        prompts = prompts_for(cfg, 6, 3, 40, seed,
+                              crossing=2 if window else 0)
+        runs = []
+        for params, dev in ((gpu, None), (cpu, "cpu")):
+            llm = LLMEngine(params, cfg, slots=3, max_seq=128, device=dev)
+            runs.append(([o.tokens for o in llm.generate(
+                prompts, max_new_tokens=20)], llm.stats()["steps"]))
+        same_ = runs[0] == runs[1]
+        ok &= same_
+        log(f"  {arch} greedy streams card vs cpu (prompt lengths "
+            f"{[len(p) for p in prompts]}, steps {runs[0][1]} vs "
+            f"{runs[1][1]}): {'equal' if same_ else 'DIFFER'}")
+    return ok
+
+
+def ptxas_kernels(text: str) -> list:
+    """(kernel with its template arguments, registers, spill-store bytes)
+    of each kernel in ptxas' report (``-Xptxas -v``), in its order."""
+    import re
+    rows, name, spill = [], None, 0
+    for line in text.splitlines():
+        found = re.search(r"Compiling entry function '(\w+)'", line)
+        if found:
+            short = re.search(r"\d([a-z][a-z_]*_kernel)(I.*?)?Ev",
+                              found.group(1))
+            name = "".join(short.groups("")) if short else found.group(1)
+            continue
+        found = re.search(r"(\d+) bytes spill stores", line)
+        if found:
+            spill = int(found.group(1))
+            continue
+        found = re.search(r"Used (\d+) registers", line)
+        if found and name:
+            rows.append((name, int(found.group(1)), spill))
+            name, spill = None, 0
+    return rows
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -1975,6 +2263,9 @@ def main() -> int:
                     help=argparse.SUPPRESS)
     ap.add_argument("--time-serve", nargs=2, metavar=("SRC", "ARCH"),
                     help="time phase 4's serve of ARCH on the package "
+                    "under SRC, and stop")
+    ap.add_argument("--time-decode", metavar="SRC",
+                    help="time the decode kernels' rows on the package "
                     "under SRC, and stop")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -1988,6 +2279,10 @@ def main() -> int:
     if args.time_serve:
         sys.path.insert(0, os.path.abspath(args.time_serve[0]))
         print(json.dumps(time_serve(args.time_serve[1])))
+        return 0
+    if args.time_decode:
+        sys.path.insert(0, os.path.abspath(args.time_decode))
+        print(json.dumps(time_decode()))
         return 0
     sys.path.insert(0, os.path.join(ROOT, "src"))
     if args.journal_child:
@@ -2008,9 +2303,8 @@ def main() -> int:
     info = _build.build_info
     log(f"  kernel library {'cached' if info['cached'] else 'built'} in "
         f"{info['seconds']:.1f} s: {info['path']}")
-    for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            log("   " + line.strip())
+    for name, regs, spill in ptxas_kernels(info["log"]):
+        log(f"   {name}: {regs} registers, {spill} bytes spill stores")
     phase_s["build"] = time.perf_counter() - t_start
 
     ok: dict = {}
@@ -2078,13 +2372,20 @@ def main() -> int:
     t0 = time.perf_counter()
     log("phase 4d: serve olmoe-1b-7b, the mixture of experts, on the "
         "contiguous cache (reintegrated genomes)")
-    ok["serve olmoe"], olmoe_counts = phase_serve_moe()
+    ok["serve olmoe"], olmoe_counts, _ = phase_serve_bound(SERVE_OLMOE)
     phase_s["serve olmoe"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    log("phase 4e: serve qwen3-8b and recurrentgemma-2b, then yi-34b and "
+        "chameleon-34b, at full width (reintegrated genomes)")
+    config_ok, config_counts = phase_serve_configs()
+    ok.update(config_ok)
+    phase_s["serve configs"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     log("phase 5: reference on a small input")
     ok["reference"] = phase_reference()
     ok["reference"] &= phase_reference_window()
     ok["reference"] &= phase_reference_moe()
+    ok["reference"] &= phase_reference_configs()
     phase_s["reference"] = time.perf_counter() - t0
     log("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                       for k, v in phase_s.items()))
@@ -2098,7 +2399,9 @@ def main() -> int:
                                    "serve_oversubscribed": over_counts[name],
                                    **{path: c[name] for path, c
                                       in request_counts.items()},
-                                   "serve_olmoe": olmoe_counts[name]}
+                                   "serve_olmoe": olmoe_counts[name],
+                                   **{path: c[name] for path, c
+                                      in config_counts.items()}}
         # the main path: every run but the shipped-genome serve
         row["launches"] = sum(n for path, n in row["launches_by_path"]
                               .items() if path != "serve_shipped")

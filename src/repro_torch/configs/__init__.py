@@ -4,13 +4,16 @@
 reduced same-family config the CPU tests use.
 """
 
-from repro_torch.configs import (granite_moe_3b_a800m, h2o_danube_1_8b,
-                                olmoe_1b_7b, qwen2_0_5b)
+from repro_torch.configs import (chameleon_34b, granite_moe_3b_a800m,
+                                h2o_danube_1_8b, olmoe_1b_7b, qwen2_0_5b,
+                                qwen3_8b, recurrentgemma_2b, yi_34b)
 from repro_torch.configs.base import ModelConfig
 
 _MODULES = {"qwen2-0.5b": qwen2_0_5b, "h2o-danube-1.8b": h2o_danube_1_8b,
             "granite-moe-3b-a800m": granite_moe_3b_a800m,
-            "olmoe-1b-7b": olmoe_1b_7b}
+            "olmoe-1b-7b": olmoe_1b_7b, "qwen3-8b": qwen3_8b,
+            "yi-34b": yi_34b, "chameleon-34b": chameleon_34b,
+            "recurrentgemma-2b": recurrentgemma_2b}
 
 CONFIGS = {k: m.CONFIG for k, m in _MODULES.items()}
 

@@ -1,5 +1,5 @@
-"""Model configuration schema (the dense-decoder and MoE parts of the JAX
-schema)."""
+"""Model configuration schema (the dense-decoder, MoE and hybrid parts of
+the JAX schema)."""
 
 from __future__ import annotations
 
@@ -22,7 +22,8 @@ class ModelConfig:
     """One architecture's dimensions; ``dtype`` is the compute type."""
 
     name: str
-    family: str                 # dense | moe (the families ported so far)
+    family: str                 # dense | moe | hybrid (the families ported
+                                # so far; JAX also has xlstm, encdec)
     n_layers: int
     d_model: int
     n_heads: int
@@ -40,6 +41,13 @@ class ModelConfig:
     top_k: int = 0
     expert_ff: int = 0                    # d_ff per expert
     capacity_factor: float = 1.25
+
+    # hybrid (recurrentgemma): layer pattern period -- indices of attention
+    # layers within each period; the others are RG-LRU recurrent blocks
+    period: int = 0
+    attn_in_period: tuple = ()
+    conv_width: int = 4
+    lru_width: int = 0
 
     dtype: str = "bfloat16"
     norm_eps: float = 1e-6

@@ -201,8 +201,10 @@ inline int allow_smem(K kernel, size_t bytes) {
 // with its own fp32 carry (m, l, acc), so no block barrier falls inside the
 // walk. A warp stages its share of a step in its own ring of kStages slots
 // with 16-byte cp.async copies (rows it does not load are zero-filled), so
-// the copies of two steps are in flight while it scores a third. It scores
-// 16 rows at once:
+// the copies of two steps are in flight while it scores a third; the
+// CUDA-core walk takes a ring of one slot where kStages do not fit 227 KB
+// (fp32 at head_dim 256), and the copy of a step then lands before it is
+// scored. It scores 16 rows at once:
 //   bf16 with 16-byte rows (mma_walk): both products on the tensor cores,
 //     mma.sync.m16n8k16 with the query group as the M = 16 rows (zero
 //     padded), q.K^T from ldmatrix'd K and p.V from ldmatrix.trans'd V,
@@ -230,7 +232,7 @@ namespace decode {
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kMinBlocks = 2;        // a SM, by the launch bounds
-constexpr int kStages = 3;           // slots of a warp's ring
+constexpr int kStages = 3;           // slots of a warp's ring (or 1)
 constexpr int kGroup = 8;            // queries a block serves at most
 constexpr int kSub = 16;             // rows a warp scores at once
 constexpr float kNegInf = -1e30f;    // finite -inf of the Pallas kernels
@@ -251,6 +253,7 @@ struct Args {
   int splits, steps_per_split;
   int extra_bytes;   // shared memory a Rows policy takes
   float scale;
+  int stages;        // slots of a warp's ring: kStages, or 1 (ring_stages)
 };
 
 __host__ __device__ inline size_t round16(size_t bytes) {
@@ -275,21 +278,49 @@ __host__ __device__ inline size_t head_bytes(int gm, int d) {
   return round16(4 * (static_cast<size_t>(gm) * d + kHeadWords));
 }
 
-// Shared memory of a block: the query group, the warps' (m, l) and merge
-// weights in fp32, and a flag; the Rows policy's own bytes; then the
-// warps' rings, which the merge of the warps' accumulators reuses. The
-// wrapper plans with its own copy (flash_decode.py: tile_layout) and
-// passes its figure; the launchers refuse one that differs from this.
-__host__ __device__ inline size_t smem_bytes(int group, int d, int step,
-                                             int lds, int itemsize,
-                                             int extra_bytes) {
+// Shared memory of a block with rings of `stages` slots: the query group,
+// the warps' (m, l) and merge weights in fp32, and a flag; the Rows
+// policy's own bytes; then the warps' rings, which the merge of the warps'
+// accumulators reuses.
+__host__ __device__ inline size_t layout_bytes(int group, int d, int step,
+                                               int lds, int itemsize,
+                                               int extra_bytes, int stages) {
   const int gm = group < kGroup ? group : kGroup;
-  const size_t ring = static_cast<size_t>(kWarps) * kStages * 2 *
+  const size_t ring = static_cast<size_t>(kWarps) * stages * 2 *
                       slot_rows(step) * lds * itemsize;
   const size_t merge = static_cast<size_t>(kWarps) * gm * d * 4;
   return head_bytes(gm, d) + round16(extra_bytes) +
          (ring > merge ? ring : merge);
 }
+
+// Slots of a warp's ring: kStages, except on the CUDA-core walk (`mma`
+// false) at a width where kStages slots of the narrowest tile (16 rows a
+// warp) do not fit 227 KB: one slot there (fp32 at head_dim 256 needs
+// 399,360 bytes for three). The width alone decides, not the step, so
+// every layout that fitted three slots keeps them.
+__host__ __device__ inline int ring_stages(bool mma, int group, int d,
+                                           int lds, int itemsize,
+                                           int extra_bytes) {
+  if (mma) return kStages;
+  return layout_bytes(group, d, kWarps * kSub, lds, itemsize, extra_bytes,
+                      kStages) <= kMaxSmem
+             ? kStages
+             : 1;
+}
+
+// Shared memory of a block, its rings sized by ring_stages. The wrapper
+// plans with its own copy (flash_decode.py: tile_layout) and passes its
+// figure; the launchers refuse one that differs from this.
+__host__ __device__ inline size_t smem_bytes(bool mma, int group, int d,
+                                             int step, int lds, int itemsize,
+                                             int extra_bytes) {
+  return layout_bytes(group, d, step, lds, itemsize, extra_bytes,
+                      ring_stages(mma, group, d, lds, itemsize, extra_bytes));
+}
+
+// Whether a (dtype, vector width) runs the tensor-core walk.
+template <typename T, int VEC>
+constexpr bool kMmaWalk = std::is_same<T, __nv_bfloat16>::value && VEC == 8;
 
 // The DMAX instantiation that takes head_dim d: 128 for a narrow bf16
 // head on the tensor cores, else 256.
@@ -346,8 +377,8 @@ struct Walk {
   float scale;
 };
 
-// A warp's ring and its share of each step.
-template <typename T>
+// A warp's ring of S slots and its share of each step.
+template <typename T, int S>
 struct Ring {
   T* base;
   int step, share, r_lo, r_n, rows, lds;
@@ -359,10 +390,10 @@ struct Ring {
     r_lo = warp * share;
     r_n = max(0, min(step, r_lo + share) - r_lo);
     slot = static_cast<size_t>(2) * rows * lds;
-    base = ring + static_cast<size_t>(warp) * kStages * slot;
+    base = ring + static_cast<size_t>(warp) * S * slot;
   }
   __device__ __forceinline__ T* k(int st) const {
-    return base + (st % kStages) * slot;
+    return base + (st % S) * slot;
   }
   __device__ __forceinline__ T* v(int st) const {
     return k(st) + static_cast<size_t>(rows) * lds;
@@ -371,8 +402,8 @@ struct Ring {
 
 // Queue this lane's copies of the warp's share of step st: rows at or
 // past load_end, and slot rows past the share, are zero-filled.
-template <typename T, int VEC, typename Rows>
-__device__ __forceinline__ void stage(const Ring<T>& ring, const Rows& rows,
+template <typename T, int VEC, int S, typename Rows>
+__device__ __forceinline__ void stage(const Ring<T, S>& ring, const Rows& rows,
                                       int st, int load_end, int U,
                                       int lane) {
   T* ks = ring.k(st);
@@ -404,12 +435,13 @@ __device__ __forceinline__ void stage(const Ring<T>& ring, const Rows& rows,
   }
 }
 
-// The ring's pipeline: the copies of the block's first two steps...
-template <typename T, int VEC, typename Rows>
-__device__ __forceinline__ void prefetch(const Walk& w, const Ring<T>& ring,
+// The ring's pipeline: the copies of the block's first S - 1 steps...
+template <typename T, int VEC, int S, typename Rows>
+__device__ __forceinline__ void prefetch(const Walk& w,
+                                         const Ring<T, S>& ring,
                                          const Rows& rows, int lane) {
 #pragma unroll
-  for (int i = 0; i < kStages - 1; ++i) {
+  for (int i = 0; i < S - 1; ++i) {
     if (w.st_begin + i < w.st_end) {
       stage<T, VEC>(ring, rows, w.st_begin + i, w.load_end, w.d / VEC, lane);
     }
@@ -417,17 +449,17 @@ __device__ __forceinline__ void prefetch(const Walk& w, const Ring<T>& ring,
   }
 }
 
-// ... then, before step st is scored, the copy of step st + 2 queued and
-// step st's own landed for every lane of the warp.
-template <typename T, int VEC, typename Rows>
-__device__ __forceinline__ void advance(const Walk& w, const Ring<T>& ring,
+// ... then, before step st is scored, the copy of step st + S - 1 queued
+// and step st's own landed for every lane of the warp.
+template <typename T, int VEC, int S, typename Rows>
+__device__ __forceinline__ void advance(const Walk& w, const Ring<T, S>& ring,
                                         const Rows& rows, int lane, int st) {
-  if (st + kStages - 1 < w.st_end) {
-    stage<T, VEC>(ring, rows, st + kStages - 1, w.load_end, w.d / VEC, lane);
+  if (st + S - 1 < w.st_end) {
+    stage<T, VEC>(ring, rows, st + S - 1, w.load_end, w.d / VEC, lane);
   }
   cp_async_commit();
-  cp_async_wait<kStages - 1>();  // this lane's copies of step st landed
-  __syncwarp();                  // ... and every lane's
+  cp_async_wait<S - 1>();  // this lane's copies of step st landed
+  __syncwarp();            // ... and every lane's
 }
 
 // Row t of sub-step r0 of step st: the score it gets (scaled, -1e30 past
@@ -438,8 +470,9 @@ __device__ __forceinline__ float mask_score(float x, int r, int t,
   return t < w.len ? x * w.scale : kNegInf;
 }
 
-// The fp32 path: any dtype, any head_dim; lanes on the CUDA cores.
-template <typename T, int VEC, typename Rows>
+// The fp32 path: any dtype, any head_dim; lanes on the CUDA cores; a ring
+// of S slots.
+template <typename T, int VEC, int S, typename Rows>
 __device__ __forceinline__ void fma_walk(const Walk& w, const Rows& rows,
                                          T* ring_mem, int lds, int step,
                                          float* qs, float* mrg, float* ml) {
@@ -463,7 +496,7 @@ __device__ __forceinline__ void fma_walk(const Walk& w, const Rows& rows,
     for (int e = 0; e < kAcc; ++e) acc[g][e] = 0.f;
   }
   if (w.st_begin < w.st_end) {
-    const Ring<T> ring(ring_mem, step, lds, warp);
+    const Ring<T, S> ring(ring_mem, step, lds, warp);
     const int rho = lane & 15;           // the row of a 16 this lane scores
     const int uh = (U + 1) / 2;          // ... over units [j_lo, j_hi)
     const int j_lo = (lane >> 4) * uh;
@@ -691,7 +724,7 @@ __device__ __forceinline__ void mma_walk(const Walk& w, const Rows& rows,
                         : 0u;
       }
     }
-    const Ring<T> ring(ring_mem, step, lds, warp);
+    const Ring<T, kStages> ring(ring_mem, step, lds, warp);
     const int mi = lane >> 3;            // the 8x8 matrix this lane points at
     prefetch<T, 8>(w, ring, rows, lane);
     for (int st = w.st_begin; st < w.st_end; ++st) {
@@ -862,7 +895,7 @@ __device__ __forceinline__ void walk(const Args& a, const Coords& c,
              static_cast<long long>(c.h) * c.group + c.g0) * d;
   const T* q = static_cast<const T*>(a.q);
 
-  constexpr bool kMma = std::is_same<T, __nv_bfloat16>::value && VEC == 8;
+  constexpr bool kMma = kMmaWalk<T, VEC>;
   if (w.st_begin < w.st_end) {
     rows.load(Span{w.st_begin, w.st_end}, a.step,
               reinterpret_cast<int*>(extra));
@@ -873,8 +906,10 @@ __device__ __forceinline__ void walk(const Args& a, const Coords& c,
   }
   if constexpr (kMma) {
     mma_walk<DMAX>(w, rows, ring, a.lds, a.step, q, mrg, ml);
+  } else if (a.stages == 1) {
+    fma_walk<T, VEC, 1>(w, rows, ring, a.lds, a.step, qs, mrg, ml);
   } else {
-    fma_walk<T, VEC>(w, rows, ring, a.lds, a.step, qs, mrg, ml);
+    fma_walk<T, VEC, kStages>(w, rows, ring, a.lds, a.step, qs, mrg, ml);
   }
   __syncthreads();
 

@@ -64,13 +64,16 @@ __global__ void __launch_bounds__(dec::kThreads, dec::kMinBlocks)
 
 // Launches the wrapper's plan: `smem` must be the block's layout.
 template <typename T, int VEC, int DMAX, bool MASK_OOB, bool RCP>
-int launch(const dec::Args& a, const void* k, const void* v, int b, int s,
+int launch(dec::Args a, const void* k, const void* v, int b, int s,
            size_t smem, cudaStream_t stream) {
   const int group = a.hq / a.hkv;
-  if (smem != dec::smem_bytes(group, a.d, a.step, a.lds, sizeof(T), 0) ||
+  constexpr bool mma = dec::kMmaWalk<T, VEC>;
+  if (smem != dec::smem_bytes(mma, group, a.d, a.step, a.lds, sizeof(T),
+                              0) ||
       smem > dec::kMaxSmem) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  a.stages = dec::ring_stages(mma, group, a.d, a.lds, sizeof(T), 0);
   auto kernel = flash_decode_kernel<T, VEC, DMAX, MASK_OOB, RCP>;
   int err = repro::allow_smem(kernel, smem);
   if (err) return err;

@@ -97,16 +97,19 @@ int slice_len(int step, int steps_per_split, int page, int n_pt) {
 // Launches the wrapper's plan: `a.extra_bytes` must hold the block's table
 // slice and `smem` must be the block's layout.
 template <typename T, int VEC, int DMAX, bool MASK_OOB, bool RCP>
-int launch(const dec::Args& a, const void* k, const void* v, const int* table,
+int launch(dec::Args a, const void* k, const void* v, const int* table,
            int b, int page, int n_pt, int num_pages, size_t smem,
            cudaStream_t stream) {
   const int group = a.hq / a.hkv;
+  constexpr bool mma = dec::kMmaWalk<T, VEC>;
   if (a.extra_bytes < 4 * slice_len(a.step, a.steps_per_split, page, n_pt) ||
-      smem != dec::smem_bytes(group, a.d, a.step, a.lds, sizeof(T),
+      smem != dec::smem_bytes(mma, group, a.d, a.step, a.lds, sizeof(T),
                               a.extra_bytes) ||
       smem > dec::kMaxSmem) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  a.stages = dec::ring_stages(mma, group, a.d, a.lds, sizeof(T),
+                              a.extra_bytes);
   auto kernel = paged_decode_kernel<T, VEC, DMAX, MASK_OOB, RCP>;
   int err = repro::allow_smem(kernel, smem);
   if (err) return err;

@@ -10,9 +10,10 @@ the same JAX module (body ``_paged_kernel``). Both are bound by bytes
 (``csrc/common.cuh``): the rows of each (kv head, request) are split into
 ``splits`` ranges of whole steps, one block a range, and each of a block's
 four warps walks its share of every step with its own fp32
-online-softmax carry through a three-slot ring of ``cp.async`` copies. The
-last block of a head to finish merges the ranges with paper Kernel 1's
-LSE weights, in the same launch. ``split_plan`` picks ``splits`` from the
+online-softmax carry through a three-slot ring of ``cp.async`` copies
+(one slot on the CUDA-core walk where three do not fit: fp32 at head_dim
+256). The last block of a head to finish merges the ranges with paper
+Kernel 1's LSE weights, in the same launch. ``split_plan`` picks ``splits`` from the
 shapes and the card alone, never from ``kv_len``, so a call never syncs
 with the host and can be captured in a CUDA graph.
 
@@ -52,7 +53,7 @@ NEG_INF = -1e30            # finite -inf of the Pallas kernel
 # the split-KV walk of csrc/common.cuh (repro::decode)
 WARPS = 4
 THREADS = 32 * WARPS
-STAGES = 3                 # slots of a warp's ring
+STAGES = 3                 # slots of a warp's ring (or 1: ring_stages)
 GROUP = 8                  # queries a block serves at most
 SUB = 16                   # rows a warp scores at once
 BLOCKS_PER_SM = 2          # the kernels' launch bounds (kMinBlocks)
@@ -110,6 +111,41 @@ def _round16(n: int) -> int:
     return -(-n // 16) * 16
 
 
+def _layout_bytes(step, d, group, itemsize, lds, extra_bytes, stages):
+    """``repro::decode::layout_bytes``: a block's shared memory with rings
+    of ``stages`` slots."""
+    gm = min(group, GROUP)
+    head = _round16(4 * (gm * d + 3 * WARPS * GROUP + 2 * GROUP + 4))
+    rows = -(-(-(-step // WARPS)) // SUB) * SUB      # slot_rows(step)
+    ring = WARPS * stages * 2 * rows * lds * itemsize
+    return head + _round16(extra_bytes) + max(ring, WARPS * gm * d * 4)
+
+
+def ring_stages(d: int, group: int, itemsize: int, vec: int,
+                extra_bytes: int = 0) -> int:
+    """Slots of a warp's ring (``repro::decode::ring_stages``): three, but
+    one on the CUDA-core walk (every dtype and width but bf16 in 16-byte
+    vectors) at a width where three slots of the narrowest tile (16 rows
+    a warp) do not fit a block: three of 16 fp32 rows of 256 (260 with
+    padding) take 399,360 bytes, one 133,120. The width decides, not the
+    step, so a genome that fitted three slots keeps them and one that did
+    not fit at a narrower head still does not. The tensor-core walk keeps
+    three, and a layout of it that does not fit is refused."""
+    if itemsize == 2 and vec == 8:
+        return STAGES
+    narrowest = _layout_bytes(WARPS * SUB, d, group, itemsize,
+                              _lds(d, itemsize, vec), extra_bytes, STAGES)
+    return STAGES if narrowest <= SMEM_PER_BLOCK else 1
+
+
+def _lds(d: int, itemsize: int, vec: int) -> int:
+    """Tile row stride in elements (``tile_layout``)."""
+    if vec > 1:
+        units = d * itemsize // 16
+        return (units | 1) * 16 // itemsize
+    return d + 1
+
+
 def tile_layout(step: int, d: int, group: int, itemsize: int, vec: int,
                 extra_bytes: int = 0) -> tuple[int, int]:
     """(tile row stride in elements, shared memory bytes of a block). The
@@ -119,22 +155,17 @@ def tile_layout(step: int, d: int, group: int, itemsize: int, vec: int,
 
     A block holds up to 8 queries, the warps' (m, l) and their merge
     weights in fp32, a Rows policy's ``extra_bytes`` (the paged kernel's
-    table slice), then each warp's ring: three slots of its share (a
-    quarter) of a ``step``-row K and V tile, rounded up to 16 rows, in the
-    cache's dtype. With 16-byte vectors a tile row is padded to an odd
-    number of 16-byte units (so the rows a quarter-warp or an 8x8
-    ``ldmatrix`` reads hit distinct banks), else to ``d + 1`` elements.
-    After the walk the rings hold the warps' accumulators."""
-    if vec > 1:
-        units = d * itemsize // 16
-        lds = (units | 1) * 16 // itemsize
-    else:
-        lds = d + 1
-    gm = min(group, GROUP)
-    head = _round16(4 * (gm * d + 3 * WARPS * GROUP + 2 * GROUP + 4))
-    rows = -(-(-(-step // WARPS)) // SUB) * SUB      # slot_rows(step)
-    ring = WARPS * STAGES * 2 * rows * lds * itemsize
-    return lds, head + _round16(extra_bytes) + max(ring, WARPS * gm * d * 4)
+    table slice), then each warp's ring: ``ring_stages`` slots (three, or
+    one) of its share (a quarter) of a ``step``-row K and V tile, rounded
+    up to 16 rows, in the cache's dtype. With 16-byte vectors a tile row
+    is padded to an odd number of 16-byte units (so the rows a
+    quarter-warp or an 8x8 ``ldmatrix`` reads hit distinct banks), else to
+    ``d + 1`` elements. After the walk the rings hold the warps'
+    accumulators."""
+    lds = _lds(d, itemsize, vec)
+    stages = ring_stages(d, group, itemsize, vec, extra_bytes)
+    return lds, _layout_bytes(step, d, group, itemsize, lds, extra_bytes,
+                              stages)
 
 
 def split_plan(n_steps: int, heads: int, smem: int) -> tuple[int, int]:
@@ -378,7 +409,9 @@ def launch_plan(variant: FlashDecodeVariant, *, batch: int, q_heads: int,
     n_steps = -(-seq // chunk)
     heads = batch * kv_heads * _subgroups(group)
     splits, per = split_plan(n_steps, heads, smem)
-    return dict(chunk=chunk, lds=lds, smem=smem, vec=vec, splits=splits,
+    return dict(chunk=chunk, lds=lds, smem=smem, vec=vec,
+                stages=ring_stages(head_dim, group, item, vec),
+                splits=splits,
                 steps_per_split=per,
                 grid=(kv_heads * _subgroups(group), batch, splits))
 
@@ -642,7 +675,9 @@ def paged_launch_plan(*, batch: int, q_heads: int, kv_heads: int,
     splits, per = split_plan(n_steps, heads, smem)
     extra = 4 * _slice_len(PAGED_STEP, per, page, n_pt)
     lds, smem = tile_layout(PAGED_STEP, head_dim, group, item, vec, extra)
-    return dict(lds=lds, smem=smem, vec=vec, splits=splits,
+    return dict(lds=lds, smem=smem, vec=vec,
+                stages=ring_stages(head_dim, group, item, vec, extra),
+                splits=splits,
                 steps_per_split=per, extra_bytes=extra,
                 grid=(kv_heads * _subgroups(group), batch, splits))
 

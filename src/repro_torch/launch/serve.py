@@ -8,6 +8,12 @@ On the card (the default device):
         --arch h2o-danube-1.8b --max-prompt 2048 --crossing 2
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \
         --profile
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \
+        --profile
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch recurrentgemma-2b --max-prompt 3072 --crossing 2 --profile
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-34b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch chameleon-34b
 On the CPU, at the reduced config:
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
 
@@ -18,7 +24,12 @@ kernel. A mixture of experts (olmoe-1b-7b, granite-moe-3b-a800m) is
 served from the contiguous cache too, each prompt prefilled at its exact
 length: capacity routing couples the tokens of a batch and the slots of
 a step, so padding or paging would change its tokens. A prompt of more
-than 256 tokens must be a multiple of 256 (the dispatch group).
+than 256 tokens must be a multiple of 256 (the dispatch group). The
+Griffin hybrid (recurrentgemma-2b) is served from the contiguous cache at
+exact length too: its conv and RG-LRU states absorb every token, beside a
+window-row K/V ring for its local attention. The dense qk-norm configs
+(qwen3-8b, yi-34b, chameleon-34b) page like qwen2-0.5b; a 34B model in
+bf16 takes about 69 GB of an 80 GB card.
 ``--max-seq`` defaults to 512, or twice the window.
 ``--num-pages`` below full subscription (slots * max_seq / page_size)
 oversubscribes the pool; ``--preemption swap|recompute`` says what
@@ -375,7 +386,8 @@ def run(args) -> dict:
 def main(argv=None) -> None:
     """Command-line entry point."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", default="qwen2-0.5b")
+    ap.add_argument("--arch", default="qwen2-0.5b",
+                    choices=sorted(configs.CONFIGS))
     ap.add_argument("--smoke", action="store_true",
                     help="the reduced config instead of full width")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")

@@ -1,13 +1,16 @@
 """Parameters of the JAX package, as numpy arrays, into the port's layout.
 
-The JAX families (the dense decoder and the mixture of experts) stack
-every layer weight on a leading ``[n_layers, ...]`` axis (their layers
-run under ``lax.scan``); the port keeps one dict per layer. Leaf names and
-the layout of each leaf are the same on both sides (an MoE layer: ``attn``,
-``router [D, E]``, ``w_gateup [E, D, 2F]``, ``w_down [E, F, D]``,
-``attn_norm``, ``mlp_norm``), so the conversion unstacks, copies and casts
-as the family's ``cast_params`` says (matrix weights, embeddings and
-biases to the compute dtype; norm weights, and the MoE router, in fp32).
+The JAX families stack every layer weight on leading axes (their layers
+run under ``lax.scan``); the port keeps one dict per layer. The dense
+decoder and the mixture of experts stack ``layers`` as ``[n_layers,
+...]``; the Griffin hybrid stacks ``periods`` (``rec`` as ``[P, 2, ...]``,
+its two recurrent blocks, and ``attn`` as ``[P, ...]``) and ``tail`` as
+``[T, ...]``. Leaf names and the layout of each leaf are the same on both
+sides (an MoE layer: ``attn``, ``router [D, E]``, ``w_gateup [E, D,
+2F]``, ``w_down [E, F, D]``, ``attn_norm``, ``mlp_norm``), so the
+conversion unstacks, copies and casts as the family's ``cast_params``
+says (matrix weights, embeddings and biases to the compute dtype; norm
+weights, the MoE router and the RG-LRU gates in fp32).
 The JAX tree itself is never imported here: the caller hands over
 ``jax.tree.map(np.asarray, params)``.
 """
@@ -22,26 +25,44 @@ from repro_torch.device import resolve_device
 from repro_torch.models import registry
 
 
-def _unstack(tree, i: int):
-    return {k: _unstack(v, i) if isinstance(v, dict)
-            else torch.from_numpy(np.array(v[i], np.float32))
+def _unstack(tree, *idx: int):
+    """The entry ``idx`` of every stacked leaf of ``tree``, as fp32
+    tensors."""
+    return {k: _unstack(v, *idx) if isinstance(v, dict)
+            else _tensor(np.asarray(v)[idx])
             for k, v in tree.items()}
+
+
+def _tensor(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, np.float32))
+
+
+def _stacked(tree: dict, name: str) -> int:
+    """Entries on the leading axis of ``tree``'s stacked leaf ``name``."""
+    return np.asarray(tree[name]).shape[0]
 
 
 def params_from_jax(np_tree: dict, cfg: ModelConfig, device=None) -> dict:
     """The port's parameters for ``cfg`` from the JAX parameter tree (leaves
     as numpy arrays), on ``device`` (default ``cuda``)."""
     dev = resolve_device(device)
-    n = np.asarray(np_tree["layers"]["attn_norm"]).shape[0]
+    tree = {"embed": _tensor(np_tree["embed"]),
+            "final_norm": _tensor(np_tree["final_norm"]),
+            "lm_head": _tensor(np_tree["lm_head"])}
+    if cfg.family == "hybrid":
+        periods, tail = np_tree["periods"], np_tree["tail"]
+        n_p = _stacked(periods["attn"], "attn_norm")
+        n_t = _stacked(tail, "norm") if tail else 0
+        n = 3 * n_p + n_t
+        tree["periods"] = [{"rec": [_unstack(periods["rec"], i, j)
+                                    for j in range(2)],
+                            "attn": _unstack(periods["attn"], i)}
+                           for i in range(n_p)]
+        tree["tail"] = [_unstack(tail, i) for i in range(n_t)]
+    else:
+        n = _stacked(np_tree["layers"], "attn_norm")
+        tree["layers"] = [_unstack(np_tree["layers"], i) for i in range(n)]
     if n != cfg.n_layers:
         raise ValueError(f"tree has {n} stacked layers, config "
                          f"{cfg.n_layers}")
-    tree = {
-        "embed": torch.from_numpy(np.array(np_tree["embed"], np.float32)),
-        "layers": [_unstack(np_tree["layers"], i) for i in range(n)],
-        "final_norm": torch.from_numpy(
-            np.array(np_tree["final_norm"], np.float32)),
-        "lm_head": torch.from_numpy(np.array(np_tree["lm_head"],
-                                             np.float32)),
-    }
     return registry.module_for(cfg).cast_params(tree, cfg, dev)

@@ -78,27 +78,19 @@ def cast_params(tree, cfg: ModelConfig, device):
 
 def init(cfg: ModelConfig, gen: torch.Generator, device) -> dict:
     """Random parameters with the JAX init's distributions, from ``gen``
-    (which must live on ``device``). Each layer is drawn in fp32 and cast
-    before the next is drawn, so the fp32 temporaries are one layer's."""
+    (which must live on ``device``), drawn and cast one layer at a time
+    (``transformer.init_layers``)."""
     d, e, f = cfg.d_model, cfg.n_experts, cfg.expert_ff
 
-    def normal(shape, scale):
-        return T._trunc_normal(shape, scale, gen, device)
+    def layer(normal):
+        return {"attn": T.attn_init(cfg, normal),
+                "router": normal((d, e), d ** -0.5),
+                "w_gateup": normal((e, d, 2 * f), d ** -0.5),
+                "w_down": normal((e, f, d), f ** -0.5),
+                "attn_norm": torch.ones(d, device=device),
+                "mlp_norm": torch.ones(d, device=device)}
 
-    layers = []
-    for _ in range(cfg.n_layers):
-        layers.append(cast_params({
-            "attn": T.attn_init(cfg, normal),
-            "router": normal((d, e), d ** -0.5),
-            "w_gateup": normal((e, d, 2 * f), d ** -0.5),
-            "w_down": normal((e, f, d), f ** -0.5),
-            "attn_norm": torch.ones(d, device=device),
-            "mlp_norm": torch.ones(d, device=device)}, cfg, device))
-    dt = cfg.torch_dtype
-    return {"embed": normal((cfg.padded_vocab, d), 1.0).to(dt),
-            "layers": layers,
-            "final_norm": torch.ones(d, device=device),
-            "lm_head": normal((d, cfg.padded_vocab), d ** -0.5).to(dt)}
+    return T.init_layers(cfg, gen, device, layer, cast_params)
 
 
 # --------------------------------------------------------------------------

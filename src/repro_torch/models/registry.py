@@ -1,10 +1,17 @@
 """Architecture registry: one API over the model families the port serves
-(the dense decoder of ``transformer.py`` and the mixture of experts of
-``moe.py``) and over both KV-cache layouts, the contiguous per-slot cache
-and the paged pool (with the radix prefix cache's suffix prefill and page
-copy). A family's flags say what the serving engine may do with it:
-``pad_prefill_ok``, ``paged_ok`` and ``prefix_cache_ok`` are all False for
-the MoE family, whose capacity routing couples tokens and slots.
+(the dense decoder of ``transformer.py``, the mixture of experts of
+``moe.py`` and the Griffin hybrid of ``recurrentgemma.py``) and over both
+KV-cache layouts, the contiguous per-slot cache and the paged pool (with
+the radix prefix cache's suffix prefill and page copy). A family's flags
+say what the serving engine may do with it: ``pad_prefill_ok``,
+``paged_ok`` and ``prefix_cache_ok`` are all False for the MoE family,
+whose capacity routing couples tokens and slots, and for the hybrid, whose
+recurrent state absorbs every token and does not page.
+
+Each family's ``cache_spec`` gives the contiguous cache's leaves with their
+logical axes (``batch``, ``kv_seq``, ...), and ``write_slot`` writes a
+request's prefill cache along them: the dense K/V hold the slot on axis 1,
+the Griffin recurrent states ``[periods, 2, slots, ...]`` on axis 2.
 
 ``init_params`` is an entry point: it builds on ``cuda`` unless the
 caller passes ``device="cpu"``.
@@ -16,9 +23,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import moe, transformer
+from repro_torch.models import moe, recurrentgemma, transformer
 
-_FAMILY = {"dense": transformer, "moe": moe}
+_FAMILY = {"dense": transformer, "moe": moe, "hybrid": recurrentgemma}
 
 
 def module_for(cfg: ModelConfig):
@@ -75,8 +82,17 @@ def prefill(params, cfg: ModelConfig, prompt, *, length=None,
 
 
 def cache_spec(cfg: ModelConfig, batch: int, seq: int):
-    """Leaf shapes and dtypes of the contiguous cache for ``cfg``."""
+    """(leaf shapes and dtypes, leaf logical axes) of the contiguous cache
+    for ``cfg``."""
     return module_for(cfg).cache_spec(cfg, batch, seq)
+
+
+def state_leaves(cfg: ModelConfig) -> tuple:
+    """The contiguous cache's leaves that have no ``kv_seq`` axis: state
+    that a decode step overwrites whole (the Griffin conv and RG-LRU
+    states), where K/V leaves get one new row a step."""
+    _, axes = cache_spec(cfg, 1, 1)
+    return tuple(name for name, ax in axes.items() if "kv_seq" not in ax)
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq: int, device) -> dict:
@@ -121,20 +137,28 @@ def write_cached(cfg: ModelConfig, cache, new, *, slot=None, pages=None,
 
 
 def write_slot(cfg: ModelConfig, cache, new, slot: int):
-    """Write one request's prefill cache (batch 1) into row ``slot`` of
-    the contiguous cache, in place.
+    """Write one request's prefill cache (batch 1) into slot ``slot`` of
+    the contiguous cache, in place, each leaf along the axes its family's
+    ``cache_spec`` names (the JAX ``write_slot``).
 
-    ``new`` is ``{"k","v": [L, 1, S, Hkv, dh]}`` from ``prefill``; its
-    rows go to ``[0, S)`` of the slot, and rows past S keep what they
-    held (decode's ``kv_len`` never reaches them before overwriting).
-    When S is more than the slot holds, the last rows are kept, as the
-    JAX ``write_slot`` does; ``prefill`` has already laid a prompt longer
-    than the window out as the ring."""
+    A leaf is written at ``slot`` of its ``batch`` axis. A leaf without a
+    ``kv_seq`` axis (recurrent state) is written whole, so nothing of the
+    slot's last occupant survives in it. Along ``kv_seq`` the S rows of
+    ``new`` go to ``[0, S)``, and rows past S keep what they held
+    (decode's ``kv_len`` never reaches them before overwriting); when S is
+    more than the slot holds, the last rows are kept. ``prefill`` has
+    already laid a prompt longer than the window out as the ring."""
+    _, axes = cache_spec(cfg, 1, 1)
     for name, c in cache.items():
-        rows = new[name][:, 0]                       # [L, S, Hkv, dh]
-        if rows.shape[1] > c.shape[2]:
-            rows = rows[:, rows.shape[1] - c.shape[2]:]
-        c[:, slot, :rows.shape[1]] = rows.to(c.dtype)
+        ax, rows = axes[name], new[name]
+        dst = c.narrow(ax.index("batch"), slot, 1)
+        if "kv_seq" in ax:
+            sa = ax.index("kv_seq")
+            cap, s = c.shape[sa], rows.shape[sa]
+            if s > cap:
+                rows = rows.narrow(sa, s - cap, cap)
+            dst = dst.narrow(sa, 0, rows.shape[sa])
+        dst.copy_(rows)
     return cache
 
 

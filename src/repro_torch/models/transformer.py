@@ -88,30 +88,42 @@ def attn_init(cfg: ModelConfig, normal) -> dict:
     return attn
 
 
-def init(cfg: ModelConfig, gen: torch.Generator, device) -> dict:
-    """Random parameters with the JAX init's distributions, from ``gen``
-    (which must live on ``device``)."""
+def init_layers(cfg: ModelConfig, gen: torch.Generator, device, layer,
+                cast) -> dict:
+    """Random parameters from ``gen`` (which must live on ``device``):
+    ``layer(normal)`` draws one layer's weights in fp32 through
+    ``normal(shape, scale)``, and ``cast`` (a family's ``cast_params``)
+    moves them to the compute dtype before the next layer is drawn, so the
+    fp32 temporaries are one layer's: a 34B model fits in bf16 on a card
+    that its fp32 copy would not fit. The embedding and the output head
+    are drawn after the layers, in this order."""
     d = cfg.d_model
 
     def normal(shape, scale):
         return _trunc_normal(shape, scale, gen, device)
 
-    def ones(n):
-        return torch.ones(n, device=device)
+    layers = [cast(layer(normal), cfg, device) for _ in range(cfg.n_layers)]
+    dt = cfg.torch_dtype
+    return {"embed": normal((cfg.padded_vocab, d), 1.0).to(dt),
+            "layers": layers,
+            "final_norm": torch.ones(d, device=device),
+            "lm_head": normal((d, cfg.padded_vocab), d ** -0.5).to(dt)}
 
-    layers = []
-    for _ in range(cfg.n_layers):
-        layers.append({
-            "attn": attn_init(cfg, normal),
-            "mlp": {"w_gateup": normal((d, 2 * cfg.d_ff), d ** -0.5),
-                    "w_down": normal((cfg.d_ff, d), cfg.d_ff ** -0.5)},
-            "attn_norm": ones(d), "mlp_norm": ones(d)})
-    return cast_params({
-        "embed": normal((cfg.padded_vocab, d), 1.0),
-        "layers": layers,
-        "final_norm": ones(d),
-        "lm_head": normal((d, cfg.padded_vocab), d ** -0.5),
-    }, cfg, device)
+
+def init(cfg: ModelConfig, gen: torch.Generator, device) -> dict:
+    """Random parameters with the JAX init's distributions, from ``gen``
+    (which must live on ``device``), drawn and cast one layer at a time
+    (``init_layers``)."""
+    d = cfg.d_model
+
+    def layer(normal):
+        return {"attn": attn_init(cfg, normal),
+                "mlp": {"w_gateup": normal((d, 2 * cfg.d_ff), d ** -0.5),
+                        "w_down": normal((cfg.d_ff, d), cfg.d_ff ** -0.5)},
+                "attn_norm": torch.ones(d, device=device),
+                "mlp_norm": torch.ones(d, device=device)}
+
+    return init_layers(cfg, gen, device, layer, cast_params)
 
 
 def dense_ffn(p, x):
@@ -123,20 +135,25 @@ def dense_ffn(p, x):
 # serving: prefill + single-token decode over a KV cache
 # --------------------------------------------------------------------------
 
+CACHE_AXES = ("layers", "batch", "kv_seq", "kv_heads", "head_dim")
+
+
 def cache_spec(cfg: ModelConfig, batch: int, seq: int):
-    """Shape and dtype of each leaf of the contiguous cache ``[L, batch,
-    S, Hkv, dh]``: S is ``seq``, or ``min(seq, window)`` for a
-    sliding-window config, whose cache is a ring laid out at
-    ``pos % window``."""
+    """(shape and dtype of each leaf, its logical axes) of the contiguous
+    cache ``[L, batch, S, Hkv, dh]``: S is ``seq``, or ``min(seq,
+    window)`` for a sliding-window config, whose cache is a ring laid out
+    at ``pos % window``."""
     s = min(seq, cfg.window) if cfg.window else seq
     shape = (cfg.n_layers, batch, s, cfg.n_kv_heads, cfg.head_dim)
-    return {"k": (shape, cfg.torch_dtype), "v": (shape, cfg.torch_dtype)}
+    return ({"k": (shape, cfg.torch_dtype), "v": (shape, cfg.torch_dtype)},
+            {"k": CACHE_AXES, "v": CACHE_AXES})
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq: int, device) -> dict:
     """A zeroed contiguous cache ``{"k", "v": [L, batch, S, Hkv, dh]}``."""
+    spec, _ = cache_spec(cfg, batch, seq)
     return {name: torch.zeros(shape, dtype=dtype, device=device)
-            for name, (shape, dtype) in cache_spec(cfg, batch, seq).items()}
+            for name, (shape, dtype) in spec.items()}
 
 
 def paged_cache_spec(cfg: ModelConfig, num_pages: int, page_size: int):

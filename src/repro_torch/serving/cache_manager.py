@@ -3,8 +3,10 @@
 
 ``ContiguousCacheManager`` gives every slot its own stripe of a ``[L,
 slots, S, Hkv, dh]`` cache (S = ``max_seq``, or the window for a
-sliding-window config, whose stripe is a ring): admission always fits
-and growth never runs out. ``PagedCacheManager`` owns the ``PagePool``
+sliding-window config, whose stripe is a ring; a recurrent family's
+leaves, such as the Griffin conv and RG-LRU states, hold the slot on the
+axis its ``cache_spec`` names): admission always fits and growth never
+runs out. ``PagedCacheManager`` owns the ``PagePool``
 bookkeeping (trap page 0, per-slot page tables) and the trap-padded page
 vectors prefill admission writes through. ``CacheConfig`` is the
 declarative form (``paged=None`` picks the paged pool where the

@@ -60,11 +60,20 @@ eagerly. The kernels' launch counts are kept exact under replay
 
 Capture leaves no trace. Its warm-up passes run the real kernels (which
 allocates what they keep, such as the split-KV counters) with the carry
-saved before and restored after, so they write only the cache rows the
-next step writes before it reads them: an idle paged slot writes to the
-trap page, an idle contiguous slot row ``pos % S`` of its own stripe
-(which the next prefill overwrites and ``kv_len`` masks until then), and
-a resident slot the row of its next write.
+and the cache's state leaves (``registry.state_leaves``: the Griffin
+conv and RG-LRU states, which a step overwrites whole) saved before and
+restored after, so they write only the K/V rows the next step writes
+before it reads them: an idle paged slot writes to the trap page, an idle
+contiguous slot row ``pos % S`` of its own stripe (which the next prefill
+overwrites and ``kv_len`` masks until then), and a resident slot the row
+of its next write.
+
+**Mixed caches.** A contiguous cache may hold recurrent state beside the
+K/V (the Griffin hybrid: ``conv``, ``h``, ``tconv``, ``th``). Admission
+writes every leaf of the slot along the axes the family names
+(``registry.write_slot``), so nothing of the slot's last occupant
+survives, a re-prefilled (recomputed) request included; recovery zeroes
+every leaf in place.
 
 **Preemption** (paged pool below full subscription). Admission waits for
 pages; a decode write that finds the pool dry settles the in-flight step
@@ -411,12 +420,16 @@ class Engine:
 
     def _warm_up(self) -> None:
         """``WARMUP_STEPS`` eager passes of the step body that leave the
-        carry as they found it; the cache rows they write are those the
-        next step writes before it reads them (module docstring)."""
-        saved = [b.clone() for b in self._carry()]
+        carry and the cache's state leaves (a recurrent family's conv and
+        RG-LRU states, which a step overwrites whole) as they found them;
+        the K/V rows they write are those the next step writes before it
+        reads them (module docstring)."""
+        bufs = self._carry() + tuple(self.cache[name] for name in
+                                     registry.state_leaves(self.cfg))
+        saved = [b.clone() for b in bufs]
         for _ in range(WARMUP_STEPS):
             self._run_step()
-            for buf, old in zip(self._carry(), saved):
+            for buf, old in zip(bufs, saved):
                 buf.copy_(old)
         self._warmups += WARMUP_STEPS
 

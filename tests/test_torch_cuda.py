@@ -1364,3 +1364,135 @@ def test_captured_moe_step_equals_the_eager_card_step(dev):
     assert not st["paged"] and st["decode_captures"] == 1
     assert st["graph_replays"] == st["readbacks"] == st["steps"] > 0
     assert eng.params["layers"][0]["router"].dtype == torch.float32
+
+
+# -- the dense qk-norm configs' and recurrentgemma's decode shapes ------------
+
+def _replayed_equals(call, want, dtype, tols, refill):
+    """``call`` eager, then captured in a CUDA graph and replayed after
+    ``refill()`` changes its inputs in place: each against ``want()``."""
+    _close(call(), want(), dtype, tols)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    for seed in (1, 2):
+        refill(seed)
+        graph.replay()
+        torch.cuda.synchronize()
+        _close(out, want(), dtype, tols)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hq", [32, 56, 64])
+def test_paged_decode_at_the_dense_config_shapes(dev, hq, dtype):
+    """qwen3-8b (32/8), yi-34b (56/8) and chameleon-34b (64/8) heads of
+    128 on 8 slots of 512 rows in 16-row pages: the installed genome
+    against its plain version, eager and replayed in a graph with new
+    lengths."""
+    genome = ops.get_variant("paged_flash_decode")
+    q, k, v, table, lens = paged_case(8, hq, 8, 128, 16, 32, dtype, dev,
+                                      seed=hq)
+
+    def refill(seed):
+        lens.copy_(torch.tensor(np.random.default_rng(seed).integers(
+            1, 513, size=8), dtype=torch.int32))
+    _replayed_equals(
+        lambda: ops.paged_flash_decode_attention(q, k, v, table,
+                                                 kv_len=lens),
+        lambda: flash_decode.paged_plain(genome, q, k, v, table, lens,
+                                         128 ** -0.5),
+        dtype, DECODE_TOL, refill)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_at_the_recurrentgemma_shape(dev, dtype):
+    """recurrentgemma-2b's local attention: 8 slots, 10 query heads on one
+    kv head of 256 (two query subgroups), a 2,048-row ring, eager and
+    replayed in a graph. In fp32 the ring has one slot (three do not fit
+    227 KB) and holds the fp32 tolerance."""
+    genome = ops.get_variant("flash_decode")
+    plan = flash_decode.launch_plan(genome, batch=8, q_heads=10, kv_heads=1,
+                                    head_dim=256, seq=2048, dtype=dtype)
+    assert plan["stages"] == (1 if dtype == torch.float32 else 3)
+    assert plan["grid"][0] == 2 and plan["smem"] <= \
+        flash_decode.SMEM_PER_BLOCK
+    q, k, v, lens = flash_case(8, 10, 1, 256, 2048, dtype, dev, seed=9)
+
+    def refill(seed):
+        lens.copy_(torch.tensor(np.random.default_rng(seed).integers(
+            0, 2049, size=8), dtype=torch.int32))
+    _replayed_equals(
+        lambda: ops.flash_decode_attention(q, k, v, kv_len=lens),
+        lambda: flash_decode.plain(genome, q, k, v, lens, 256 ** -0.5),
+        dtype, DECODE_TOL, refill)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_a_flash_decode_genome_that_does_not_fit_raises(dev, dtype):
+    """A 128-row chunk at head_dim 256 needs more shared memory than a
+    block has in either dtype (one slot of 32 fp32 rows, or three of
+    bf16): it raises before anything launches, and never falls back."""
+    genome = dataclasses.replace(flash_decode.OPTIMIZED, chunk=128)
+    q, k, v, lens = flash_case(2, 10, 1, 256, 512, dtype, dev)
+    n0 = flash_decode.flash_decode_attention.launches
+    with pytest.raises(ValueError, match="shared"):
+        flash_decode.flash_decode_attention(q, k, v, kv_len=lens,
+                                            variant=genome)
+    assert flash_decode.flash_decode_attention.launches == n0
+
+
+def test_captured_hybrid_step_equals_the_eager_card_step(dev):
+    """fp32, reduced recurrentgemma (window 32) with non-zero conv
+    weights, prompts under and past the window: the engine replaying its
+    captured step gives the streams and steps of the same engine stepping
+    eagerly on the card and of the CPU engine; one capture, one replay a
+    step, and the kernels' launches exact (silu once a layer a pass,
+    flash_decode once an attention layer a decode pass, no rmsnorm).
+    Then with every other request sampled: the draw's capture at the
+    first sampled admission runs its warm-up passes while greedy requests
+    are resident, and their streams stay the greedy run's."""
+    from repro_torch.serving import Engine, Request, SamplingParams
+    cfg, params = _smoke("recurrentgemma-2b")
+    gen = torch.Generator().manual_seed(11)
+    for block in [b for p in params["periods"] for b in p["rec"]] + \
+            params["tail"]:
+        block["conv_w"] = 0.5 * torch.randn(block["conv_w"].shape,
+                                            generator=gen)
+    lens = [5, 40, 17, 60, 9, 33]
+    kw = dict(slots=3, max_seq=128)
+    ops.reset_launch_counts()
+    card, eng = _serve(params, cfg, dev, lens, 12, **kw)
+    counts = ops.launch_counts()
+    st = eng.stats()
+    eager = _eager_on_the_card(Engine(params, cfg, device=dev, **kw))
+    rng = np.random.default_rng(5)
+    for rid, n in enumerate(lens):
+        eager.submit(Request(rid=rid, prompt=rng.integers(0, cfg.vocab, n),
+                             max_new_tokens=12))
+    eager.run()
+    cpu, ceng = _serve(params, cfg, "cpu", lens, 12, **kw)
+    assert card == {r.rid: list(r.out_tokens) for r in eager.finished} \
+        == cpu
+    assert st["steps"] == eager.stats()["steps"] == ceng.stats()["steps"]
+    assert not st["paged"] and st["decode_captures"] == 1
+    assert st["graph_replays"] == st["readbacks"] == st["steps"] > 0
+    passes = st["steps"] + st["capture_warmups"]
+    assert counts["fused_add_rmsnorm"] == 0
+    assert counts["silu_and_mul"] == cfg.n_layers * (passes + len(lens))
+    assert counts["flash_decode"] == (cfg.n_layers // 3) * passes
+    mixed = Engine(params, cfg, device=dev, **kw)
+    rng = np.random.default_rng(5)
+    for rid, n in enumerate(lens):
+        sp = SamplingParams(temperature=0.8, top_k=20, seed=rid) \
+            if rid in (3, 5) else None
+        mixed.submit(Request(rid=rid, prompt=rng.integers(0, cfg.vocab, n),
+                             max_new_tokens=12, sampling=sp))
+    mixed.run()
+    got = {r.rid: list(r.out_tokens) for r in mixed.finished}
+    assert mixed.stats()["decode_captures"] == 2
+    assert all(got[rid] == card[rid] for rid in (0, 1, 2, 4))

@@ -676,3 +676,34 @@ def test_chip_smoke_fails_without_a_gpu_or_the_repo(tmp_path):
                           timeout=120)
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+def test_decode_ring_slots_depend_on_the_head_width_alone():
+    """The decode kernels' rings keep three slots wherever three slots of
+    the narrowest tile fit a block, so every layout at head_dim 128 and
+    below (and every bf16 tensor-core layout) is the one it was; fp32 at
+    head_dim 256 (recurrentgemma-2b's local attention: 10/1 heads) takes
+    one slot, which fits at a 64-row chunk and not at 128."""
+    def plan(dtype, d, chunk, q_heads=32, kv_heads=8):
+        return flash_decode.launch_plan(
+            dataclasses.replace(flash_decode.OPTIMIZED, chunk=chunk),
+            batch=8, q_heads=q_heads, kv_heads=kv_heads, head_dim=d,
+            seq=4096, dtype=dtype)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in (64, 80, 128, 256):
+            for chunk in (16, 32, 64, 128, 256):
+                p = plan(dtype, d, chunk)
+                one = dtype == torch.float32 and d == 256
+                assert p["stages"] == (1 if one else 3), (dtype, d, chunk)
+    bf16 = plan(torch.bfloat16, 256, 64, 10, 1)
+    assert bf16["smem"] == 211_408 and bf16["grid"] == (2, 8, 8)
+    fp32 = plan(torch.float32, 256, 64, 10, 1)
+    assert fp32["smem"] == 141_776 <= flash_decode.SMEM_PER_BLOCK
+    assert plan(torch.float32, 256, 128, 10, 1)["smem"] > \
+        flash_decode.SMEM_PER_BLOCK
+    paged = flash_decode.paged_launch_plan(
+        batch=8, q_heads=10, kv_heads=1, head_dim=256, page=16, n_pt=128,
+        dtype=torch.float32)
+    assert paged["stages"] == 1 and paged["smem"] <= \
+        flash_decode.SMEM_PER_BLOCK
