@@ -18,9 +18,11 @@ Phases, each of which fails the run (non-zero exit) on any error:
    prefill, rmsnorm at width 2048, flash_decode at head_dim 128, group
    1); the paged decode at the dense qk-norm configs' heads (8 slots of
    512 rows, 32/8, 56/8 and 64/8 heads of 128: qwen3-8b, yi-34b,
-   chameleon-34b) and flash_decode at recurrentgemma-2b's (8 slots, 10/1
-   heads of 256, a 2,048-row ring; in fp32 on the ring of one slot), the
-   latter beside SDPA. The shipped genomes, and the baseline genomes; the
+   chameleon-34b), flash_decode at recurrentgemma-2b's (8 slots, 10/1
+   heads of 256, a 2,048-row ring; in fp32 on the ring of one slot) and
+   at seamless-m4t-large-v2's cross-attention (8 slots, 16/16 heads of
+   64, every row of a 1,024-row cross cache), the latter two beside
+   SDPA. The shipped genomes, and the baseline genomes; the
    split-KV decode kernels' launch plans (splits, grid) first, and after
    the timings both decode kernels checked for every genome of their
    flags at kv_len 0, 1, the cache's rows and each split boundary +- 1,
@@ -148,14 +150,36 @@ Phases, each of which fails the run (non-zero exit) on any error:
    layer a decode pass) and prints the decode step beside its bound
    (every weight but the embedding table read once a step), tok_s, ttft
    and the peak memory.
-5. Reference: on the reduced qwen2, h2o-danube, olmoe, qwen3-8b and
-   recurrentgemma-2b configs in fp32, the port's logits (the h2o and
-   recurrentgemma ones past the window and after the ring wraps), caches
-   and greedy streams on the card agree with its plain versions on the
-   CPU; the olmoe streams on more slots than the decode capacity, with
-   TF32 off (a TF32 router would pick other experts on the card), and
-   recurrentgemma's with its conv weights drawn non-zero (at init they
-   are zero and the recurrence would see no input).
+4f. The last two families at full width in bf16 (seeded weights drawn
+   and cast one block at a time), reintegrated genomes, 8 slots of the
+   contiguous cache, 16 greedy requests of 32 tokens, each prompt
+   prefilled at its exact length, each model alone on the card:
+   xlstm-1.3b (48 blocks, 6 periods of 7 mLSTM and 1 sLSTM; its cache is
+   the recurrent state, 2.82 GB for 8 slots at any max_seq) on twelve
+   prompts of 16-127 tokens and four of 1,024-4,096, max_seq 8,192; and
+   seamless-m4t-large-v2 (24 encoder and 24 decoder layers) on frame
+   prompts of 64-512 rows and two of 700 and 1,000 (the encoder's zero
+   pad rows), max_seq 1,024, every slot reused. Each checks what phase 4
+   checks (one capture, ``readbacks == steps == graph_replays``, launch
+   counts: the xLSTM launches none of the kernels; the encoder-decoder
+   silu once an encoder and a decoder layer and flash_decode twice a
+   decoder layer a prefill, silu once and flash_decode twice a decoder
+   layer a decode pass) and prints the cache bytes, the decode step
+   beside its bound (the weights a step reads, once, plus the xLSTM
+   state read and written or the cross K/V read), tok_s, ttft and the
+   peak memory.
+5. Reference: on the reduced qwen2, h2o-danube, olmoe, qwen3-8b,
+   recurrentgemma-2b, xlstm-1.3b and seamless-m4t-large-v2 configs in
+   fp32, the port's logits (the h2o and recurrentgemma ones past the
+   window and after the ring wraps), caches and greedy streams on the
+   card agree with its plain versions on the CPU; the olmoe streams on
+   more slots than the decode capacity, with TF32 off (a TF32 router
+   would pick other experts on the card), recurrentgemma's with its conv
+   weights drawn non-zero (at init they are zero and the recurrence would
+   see no input), xlstm's with its mLSTM gates drawn at their fan-in
+   scale (at the JAX init's scale one ulp of a block's input moves its
+   output past the fp32 tolerance), seamless's also on one slot reused
+   by a shorter source.
 
 ``--time-serve SRC ARCH`` runs no phase: it serves phase 4's fully
 subscribed workload of ARCH (qwen2-0.5b, h2o-danube-1.8b or
@@ -216,6 +240,15 @@ SERVE_QWEN3 = dict(SERVE, arch="qwen3-8b")
 SERVE_RGEMMA = dict(SERVE, arch="recurrentgemma-2b", max_seq=4096,
                     max_prompt=3072, crossing=2)
 SERVE_34B = (dict(SERVE, arch="yi-34b"), dict(SERVE, arch="chameleon-34b"))
+# phase 4f: xlstm-1.3b with twelve prompts of 16-127 tokens and four long
+# ones that JAX's chunked scan takes (multiples of 64), its state the same
+# size at any max_seq; seamless-m4t-large-v2 with frame prompts of 64-512
+# rows and two past 512 and not a multiple of it (the encoder's zero pad
+# rows), max_seq 1,024; both on the contiguous cache at exact length
+SERVE_XLSTM = dict(SERVE, arch="xlstm-1.3b", max_seq=8192, max_prompt=127,
+                   lengths=(1024, 2048, 3072, 4096))
+SERVE_SEAMLESS = dict(SERVE, arch="seamless-m4t-large-v2", max_seq=1024,
+                      min_prompt=64, max_prompt=512, lengths=(700, 1000))
 # 48 pages of 16 rows against 8 slots x 512 rows (256 pages): swap
 SERVE_OVER = dict(SERVE, num_pages=48, preemption="swap")
 # phase 4's requests, every other one sampled with its own seed
@@ -543,8 +576,23 @@ def config_cases(dtype):
         "flash_decode", f"{cfg.name} b={b} hq/hkv={hq}/{hkv} d={dh} s={s} "
         f"kv_len={s} {g.describe()} (ring of {plan['stages']} slots, "
         f"{plan['smem']} B a block)", dtype,
-        lambda: fd.flash_decode_attention(q, k, v, kv_len=n, variant=g),
-        lambda: fd.plain(g, q, k, v, n, dh ** -0.5),
+        lambda a=(q, k, v), n=n: fd.flash_decode_attention(
+            *a, kv_len=n, variant=g),
+        lambda a=(q, k, v), n=n, dh=dh: fd.plain(g, *a, n, dh ** -0.5),
+        2 * b * hq * dh * es + 2 * b * s * hkv * dh * es + 4 * b,
+        4 * b * s * hq * dh, False, False, sdpa(q, k, v, n)))
+    # seamless-m4t-large-v2's cross-attention at decode: 8 slots, 16/16
+    # heads of 64 (group 1), every row of a 1,024-row cross cache
+    cfg = configs.get(SERVE_SEAMLESS["arch"])
+    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    s = SERVE_SEAMLESS["max_seq"]
+    q, k, v, n = flash_inputs(b, hq, hkv, dh, s, [s] * b, dtype, seed=13)
+    cases.append((
+        "flash_decode", f"{cfg.name} cross-attention b={b} hq/hkv={hq}/{hkv}"
+        f" d={dh} s={s} kv_len={s} {g.describe()}", dtype,
+        lambda a=(q, k, v), n=n: fd.flash_decode_attention(
+            *a, kv_len=n, variant=g),
+        lambda a=(q, k, v), n=n, dh=dh: fd.plain(g, *a, n, dh ** -0.5),
         2 * b * hq * dh * es + 2 * b * s * hkv * dh * es + 4 * b,
         4 * b * s * hq * dh, False, False, sdpa(q, k, v, n)))
     return cases
@@ -1336,6 +1384,10 @@ def serve_params(cfg, seed: int):
               else f"d_ff {cfg.d_ff}")
         if cfg.family == "hybrid":
             ff += f", lru_width {cfg.lru_width}"
+        elif cfg.family == "xlstm":
+            ff = "periods of 7 mLSTM and 1 sLSTM blocks"
+        elif cfg.family == "encdec":
+            ff += f", {cfg.enc_layers} encoder layers, frame prompts"
         log(f"  {cfg.name} full width ({cfg.n_layers} layers, d_model "
             f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, {ff}, "
             f"vocab {cfg.padded_vocab}, window {cfg.window}) "
@@ -1379,8 +1431,9 @@ def phase_serve(label: str, s: dict) -> tuple[bool, dict, list, dict]:
     ``num_pages`` (an oversubscribed pool), ``paged=False`` (the
     contiguous cache), ``sampled`` (every other request sampled with
     ``SAMPLED`` and its own seed), ``shared`` (the shared-prefix
-    prompts), ``prefix_cache`` (off when False), ``scheduler`` and
-    ``priorities`` (``"rid"``: the JAX benchmark's ``(rid * 5) % 3``)."""
+    prompts), ``prefix_cache`` (off when False), ``scheduler``,
+    ``priorities`` (``"rid"``: the JAX benchmark's ``(rid * 5) % 3``) and
+    ``lengths`` (the lengths of the last prompts)."""
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import (measure, prompts_for,
                                           shared_prefix_prompts)
@@ -1393,7 +1446,8 @@ def phase_serve(label: str, s: dict) -> tuple[bool, dict, list, dict]:
     else:
         prompts = prompts_for(cfg, s["requests"], s["min_prompt"],
                               s["max_prompt"], s["seed"],
-                              crossing=s["crossing"])
+                              crossing=s["crossing"],
+                              lengths=s.get("lengths", ()))
     sampling = None
     if s.get("sampled"):
         sampling = [SamplingParams(**SAMPLED, seed=1000 + rid)
@@ -1415,6 +1469,8 @@ def phase_serve(label: str, s: dict) -> tuple[bool, dict, list, dict]:
     if m["paged"]:
         layout = f"paged pool of {m['num_pages']} pages of " \
             f"{s['page_size']}{', radix tree' if m['prefix_cache'] else ''}"
+    elif cfg.family == "xlstm":
+        layout = "contiguous recurrent state (mLSTM and sLSTM)"
     else:
         layout = (f"contiguous cache of {m['max_seq']} rows a slot"
                   if not cfg.window else
@@ -1482,20 +1538,45 @@ def phase_serve(label: str, s: dict) -> tuple[bool, dict, list, dict]:
     return ok, m["launches"], [o.tokens for o in outs], m
 
 
+def cache_bytes(cfg, slots: int, max_seq: int, names=None) -> int:
+    """Bytes of the contiguous cache's leaves (``names``, default all) for
+    ``slots`` slots of ``max_seq`` rows."""
+    from repro_torch.models import registry
+    spec, _ = registry.cache_spec(cfg, slots, max_seq)
+    return sum(int(np.prod(shape)) * torch.tensor([], dtype=dt)
+               .element_size() for name, (shape, dt) in spec.items()
+               if names is None or name in names)
+
+
 def phase_serve_bound(s: dict) -> tuple[bool, dict, dict]:
     """``phase_serve`` of ``s`` with the reintegrated genomes, its decode
-    step beside the step's bound (every weight but the embedding table
-    read once, and the table's rows of the step's tokens, over the card's
-    memory rate; the KV rows left out) and, for a family that prefills at
-    exact length, the check that it did. Returns (ok, launch counts, the
-    metrics)."""
+    step beside the step's bound (every weight a decode step reads, once,
+    and the embedding table's rows of the step's tokens, over the card's
+    memory rate: every weight but the table, the encoder-decoder's
+    encoder left out too; the KV rows left out, but the xLSTM state read
+    and written whole and the encoder-decoder's cross K/V read whole) and,
+    for a family that prefills at exact length, the check that it did.
+    Returns (ok, launch counts, the metrics)."""
     from repro_torch.models import registry
     cfg = serve_config(s)
     ok, counts, _, m = phase_serve("reintegrated genomes", s)
     params = serve_params(cfg, s["seed"])
     emb = params["embed"]
-    step_bytes = param_bytes(params) - param_bytes(emb) \
+    skip = ("embed", "enc_layers", "enc_norm")
+    step_bytes = param_bytes({k: v for k, v in params.items()
+                              if k not in skip}) \
         + s["slots"] * emb.shape[1] * emb.element_size()
+    state = cache_bytes(cfg, s["slots"], s["max_seq"])
+    if cfg.family == "xlstm":
+        step_bytes += 2 * state
+    elif cfg.family == "encdec":
+        step_bytes += cache_bytes(cfg, s["slots"], s["max_seq"],
+                                  ("ck", "cv"))
+    m.update(cache_bytes=state)
+    log(f"  {cfg.name}: contiguous cache {state / 1e9:.3f} GB for "
+        f"{s['slots']} slots of {s['max_seq']} rows"
+        + (f" ({cache_bytes(cfg, s['slots'], 1) / 1e9:.3f} GB at max_seq "
+           "1: the state does not grow)" if cfg.family == "xlstm" else ""))
     bound_ms = step_bytes / HBM_BYTES_S * 1e3
     step_ms = 1e3 * m["decode_step_s"]
     m.update(bound_ms=bound_ms, step_bytes=step_bytes)
@@ -1554,6 +1635,19 @@ def phase_serve_configs() -> tuple[dict, dict]:
     return ok, counts
 
 
+def phase_serve_families() -> tuple[dict, dict]:
+    """4f: xlstm-1.3b and seamless-m4t-large-v2 at full width, each alone
+    on the card (every earlier model freed first). Returns (ok by path,
+    launch counts by path)."""
+    ok, counts = {}, {}
+    for path, s in (("serve_xlstm", SERVE_XLSTM),
+                    ("serve_seamless", SERVE_SEAMLESS)):
+        free_models()
+        ok[path], counts[path], _ = phase_serve_bound(s)
+    free_models()
+    return ok, counts
+
+
 def same(what: str, a, b) -> bool:
     """Log and return whether two lists of streams are equal."""
     eq = a == b
@@ -1607,23 +1701,34 @@ def chaos_prompts(cfg, s: dict) -> list:
                       np.ones(s["max_seq"], np.int32)]
 
 
-def launches_a_pass(cfg) -> tuple[int, int, int]:
-    """(rmsnorm calls, silu launches, decode-attention launches) of one
-    forward pass of ``cfg``: a dense or MoE layer calls the norm twice
-    (and the final norm once), silu once, and in a decode pass the
-    attention once; the Griffin hybrid's norms are plain, every layer's
-    MLP launches silu, and only its attention layers (one a period of
-    three) launch the attention."""
+def launches_a_pass(cfg) -> dict:
+    """{"prefill", "decode": (rmsnorm calls, silu launches,
+    decode-attention launches)} of one pass of ``cfg``: a dense or MoE
+    layer calls the norm twice (and the final norm once) and silu once,
+    and in a decode pass the attention once; the Griffin hybrid's norms
+    are plain, every layer's MLP launches silu, and only its attention
+    layers (one a period of three) launch the attention at decode; the
+    xLSTM launches none of the kernels; the encoder-decoder's norms are
+    plain, its prefill launches silu in every encoder and decoder layer
+    and the attention twice a decoder layer (the BOS step's self and cross
+    attention), and a decode pass silu and the attention twice a decoder
+    layer."""
+    n = cfg.n_layers
+    if cfg.family == "xlstm":
+        return {"prefill": (0, 0, 0), "decode": (0, 0, 0)}
+    if cfg.family == "encdec":
+        return {"prefill": (0, cfg.enc_layers + n, 2 * n),
+                "decode": (0, n, 2 * n)}
     if cfg.family == "hybrid":
-        return 0, cfg.n_layers, cfg.n_layers // 3
-    return 2 * cfg.n_layers + 1, cfg.n_layers, cfg.n_layers
+        return {"prefill": (0, n, 0), "decode": (0, n, n // 3)}
+    return {"prefill": (2 * n + 1, n, 0), "decode": (2 * n + 1, n, n)}
 
 
 def expected_launches(cfg, m: dict, k: int = 0, draft=None) -> dict:
     """What a serve's kernels launch, from its counts: every prefill
-    (whole or suffix) and every decode pass launches the norms and silu,
-    and a decode pass the layout's attention, as ``launches_a_pass`` says
-    (a two-pass rmsnorm twice a call). A spec step (``k`` drafts) makes
+    (whole or suffix) and every decode pass launches what
+    ``launches_a_pass`` says, the attention on the layout's kernel (a
+    two-pass rmsnorm twice a call). A spec step (``k`` drafts) makes
     k + 1 target passes and, with a ``draft`` model config, k + 1 draft
     passes (contiguous ``flash_decode``) and one draft prefill per
     prefill. The merge is not on the path."""
@@ -1641,10 +1746,12 @@ def expected_launches(cfg, m: dict, k: int = 0, draft=None) -> dict:
     models = [(cfg, attn)] + ([(draft, "flash_decode")]
                               if draft is not None else [])
     for c, kernel in models:
-        norms, silu, attn_calls = launches_a_pass(c)
-        want["fused_add_rmsnorm"] += norm * norms * (passes + prefills)
-        want["silu_and_mul"] += silu * (passes + prefills)
-        want[kernel] += attn_calls * passes
+        counts = launches_a_pass(c)
+        for kind, times in (("prefill", prefills), ("decode", passes)):
+            norms, silu, attn_calls = counts[kind]
+            want["fused_add_rmsnorm"] += norm * norms * times
+            want["silu_and_mul"] += silu * times
+            want[kernel] += attn_calls * times
     return want
 
 
@@ -2230,6 +2337,101 @@ def phase_reference_configs() -> bool:
     return ok
 
 
+def _fan_in_gates(params, cfg, seed: int) -> None:
+    """Redraw every mLSTM block's ``w_i``, ``w_f`` in place at ``dh **
+    -0.5``: at the JAX init's ``heads ** -0.5`` the block's output is so
+    ill-conditioned that one ulp of its input moves it past the fp32
+    tolerance (``tests/test_torch_xlstm.py``), so the card and the CPU,
+    whose sums round otherwise, could not be compared there."""
+    gen = torch.Generator().manual_seed(seed)
+    for block in [b for p in params["periods"] for b in p["mlstm"]]:
+        for name in ("w_i", "w_f"):
+            w = block[name]
+            block[name] = torch.randn(w.shape, generator=gen).clamp(
+                -2, 2) * w.shape[-1] ** -0.5
+
+
+def phase_reference_families() -> bool:
+    """Reduced xlstm-1.3b (its mLSTM gates redrawn at their fan-in scale,
+    ``_fan_in_gates``) and seamless-m4t-large-v2 in fp32: prefill logits
+    and every cache leaf for three prompts (130 tokens: two chunks, the
+    second ragged; 700 frames: the encoder's pad rows), then 40 decode
+    steps of logits and leaves, and greedy streams (seamless also on one
+    slot reused by a shorter source, whose stream depends on the last
+    occupant's cross rows), on the card against the plain versions on the
+    CPU."""
+    from repro_torch import configs
+    from repro_torch.launch.serve import prompts_for
+    from repro_torch.models import registry
+    from repro_torch.serving import LLMEngine
+
+    ok = True
+    for arch, seed, s in (("xlstm-1.3b", 6, 130),
+                          ("seamless-m4t-large-v2", 7, 700)):
+        cfg = dataclasses.replace(configs.smoke(arch), dtype="float32")
+        cpu = registry.init_params(cfg, seed=seed, device="cpu")
+        if cfg.family == "xlstm":
+            _fan_in_gates(cpu, cfg, seed)
+        gpu = registry.module_for(cfg).cast_params(cpu, cfg,
+                                                   torch.device("cuda"))
+        rng = np.random.default_rng(seed)
+        if cfg.frontend == "frames":
+            inp = torch.tensor(rng.standard_normal((3, s, cfg.d_model)),
+                               dtype=torch.float32)
+            start = 1
+        else:
+            inp = torch.tensor(rng.integers(0, cfg.vocab, (3, s)))
+            start = s
+        feed = rng.integers(0, cfg.vocab, (40, 3))
+        outs = []
+        for params, dev in ((gpu, "cuda"), (cpu, "cpu")):
+            lg, kv = registry.prefill(params, cfg, inp.to(dev), cache_len=96)
+            first = {k: v.to("cpu", copy=True) for k, v in kv.items()}
+            steps = []
+            for t in range(40):
+                logits, kv = registry.decode_cached(
+                    params, cfg, kv,
+                    torch.tensor(feed[t], dtype=torch.int32, device=dev),
+                    torch.tensor([start + t] * 3, dtype=torch.int32,
+                                 device=dev))
+                steps.append(logits.cpu())
+            outs.append((lg.cpu(), first, torch.stack(steps),
+                         {k: v.cpu() for k, v in kv.items()}))
+        (lg_g, first_g, steps_g, last_g), (lg_c, first_c, steps_c,
+                                           last_c) = outs
+        checks = [(f"prefill logits (3 x {s})", lg_g, lg_c),
+                  ("decode logits (40 steps, 3 slots)", steps_g, steps_c)]
+        checks += [(f"cache leaf {k} after prefill", first_g[k], first_c[k])
+                   for k in first_c]
+        checks += [(f"cache leaf {k} after the steps", last_g[k], last_c[k])
+                   for k in last_c]
+        for what, g, c in checks:
+            err = compare(g, c)
+            ok &= err[2]
+            log(f"  {arch} {what} card vs cpu: max_abs={err[0]:.3e} "
+                f"{'ok' if err[2] else 'MISMATCH'}")
+        prompts = prompts_for(cfg, 6, 3, 100, seed)
+        runs = [(prompts, 3)]
+        if cfg.frontend == "frames":
+            forty, six = prompts_for(cfg, 2, 3, 100, seed + 1,
+                                     lengths=(40, 6))
+            runs += [([six], 1), ([forty, six], 1)]
+        for wave, slots in runs:
+            got = []
+            for params, dev in ((gpu, None), (cpu, "cpu")):
+                llm = LLMEngine(params, cfg, slots=slots, max_seq=128,
+                                device=dev)
+                got.append(([o.tokens for o in llm.generate(
+                    wave, max_new_tokens=20)], llm.stats()["steps"]))
+            same_ = got[0] == got[1]
+            ok &= same_
+            log(f"  {arch} greedy streams card vs cpu on {slots} slots "
+                f"(prompt lengths {[len(p) for p in wave]}, steps "
+                f"{got[0][1]} vs {got[1][1]}): "
+                f"{'equal' if same_ else 'DIFFER'}")
+    return ok
+
+
 def ptxas_kernels(text: str) -> list:
     """(kernel with its template arguments, registers, spill-store bytes)
     of each kernel in ptxas' report (``-Xptxas -v``), in its order."""
@@ -2381,11 +2583,19 @@ def main() -> int:
     ok.update(config_ok)
     phase_s["serve configs"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    log("phase 4f: serve xlstm-1.3b and seamless-m4t-large-v2 at full "
+        "width (reintegrated genomes)")
+    family_ok, family_counts = phase_serve_families()
+    ok.update(family_ok)
+    config_counts.update(family_counts)
+    phase_s["serve families"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     log("phase 5: reference on a small input")
     ok["reference"] = phase_reference()
     ok["reference"] &= phase_reference_window()
     ok["reference"] &= phase_reference_moe()
     ok["reference"] &= phase_reference_configs()
+    ok["reference"] &= phase_reference_families()
     phase_s["reference"] = time.perf_counter() - t0
     log("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                       for k, v in phase_s.items()))

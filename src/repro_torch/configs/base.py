@@ -1,5 +1,5 @@
-"""Model configuration schema (the dense-decoder, MoE and hybrid parts of
-the JAX schema)."""
+"""Model configuration schema (the JAX package's ``ModelConfig``, all five
+families: dense, moe, hybrid, xlstm and encdec)."""
 
 from __future__ import annotations
 
@@ -22,8 +22,7 @@ class ModelConfig:
     """One architecture's dimensions; ``dtype`` is the compute type."""
 
     name: str
-    family: str                 # dense | moe | hybrid (the families ported
-                                # so far; JAX also has xlstm, encdec)
+    family: str                 # dense | moe | xlstm | hybrid | encdec
     n_layers: int
     d_model: int
     n_heads: int
@@ -49,6 +48,16 @@ class ModelConfig:
     conv_width: int = 4
     lru_width: int = 0
 
+    # xlstm: blocks alternate (mLSTM, sLSTM) within each period
+    slstm_every: int = 0                  # 0 = all mLSTM
+
+    # enc-dec
+    enc_layers: int = 0                   # 0 = decoder-only
+
+    # modality frontend stub: prompts are precomputed frame embeddings
+    # ``[S, d_model]`` instead of token ids
+    frontend: str = "tokens"              # tokens | frames
+
     dtype: str = "bfloat16"
     norm_eps: float = 1e-6
 
@@ -70,3 +79,9 @@ class ModelConfig:
         except KeyError:
             raise ValueError(f"unsupported dtype {self.dtype!r}; have "
                              f"{sorted(_DTYPES)}") from None
+
+
+def long_context_ok(cfg: ModelConfig) -> bool:
+    """True for the sub-quadratic mixers (the recurrent families and a
+    sliding window), the configs the JAX package runs at 500k tokens."""
+    return cfg.family in ("xlstm", "hybrid") or cfg.window is not None

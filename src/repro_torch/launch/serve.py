@@ -14,8 +14,15 @@ On the card (the default device):
         --arch recurrentgemma-2b --max-prompt 3072 --crossing 2 --profile
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-34b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch chameleon-34b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-1.3b \
+        --max-prompt 127 --lengths 1024 2048 3072 4096 --max-seq 8192
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch seamless-m4t-large-v2 --min-prompt 64 --max-prompt 512 \
+        --lengths 700 1000 --max-seq 1024
 On the CPU, at the reduced config:
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
+        --arch seamless-m4t-large-v2
 
 An architecture that can page (qwen2-0.5b) is served from the paged pool;
 a sliding-window one (h2o-danube-1.8b) from the contiguous cache, a
@@ -29,7 +36,15 @@ Griffin hybrid (recurrentgemma-2b) is served from the contiguous cache at
 exact length too: its conv and RG-LRU states absorb every token, beside a
 window-row K/V ring for its local attention. The dense qk-norm configs
 (qwen3-8b, yi-34b, chameleon-34b) page like qwen2-0.5b; a 34B model in
-bf16 takes about 69 GB of an 80 GB card.
+bf16 takes about 69 GB of an 80 GB card. The xLSTM (xlstm-1.3b) is served
+from the contiguous cache at exact length: its cache is the mLSTM and
+sLSTM state, the same size at any ``--max-seq``; a prompt of more than
+64 tokens must be a multiple of ``S // 64`` tokens (JAX's chunked scan).
+The encoder-decoder (seamless-m4t-large-v2) takes frame prompts,
+``standard_normal`` ``[length, d_model]`` embeddings drawn from
+``--seed`` (its audio frontend is a stub), encodes them at exact length
+and decodes from BOS; its contiguous cache holds the self and the cross
+K/V. ``--lengths`` sets the lengths of the last prompts.
 ``--max-seq`` defaults to 512, or twice the window.
 ``--num-pages`` below full subscription (slots * max_seq / page_size)
 oversubscribes the pool; ``--preemption swap|recompute`` says what
@@ -110,12 +125,16 @@ KERNEL_SYMBOLS = {
 
 
 def prompts_for(cfg, n: int, lo: int, hi: int, seed: int, *,
-                crossing: int = 0) -> list:
-    """``n`` prompts of seeded lengths in ``[lo, hi]`` and seeded ids.
-    ``crossing`` > 0 (a sliding-window config only) redraws the lengths of
-    the first ``crossing`` prompts in ``[window - 26, window - 6]``, so
-    that 32 new tokens carry them across the window, and of the next
-    ``crossing`` in ``(window, 1.5 window]``, longer than the ring."""
+                crossing: int = 0, lengths=()) -> list:
+    """``n`` prompts of seeded lengths in ``[lo, hi]`` and seeded ids, or
+    for a frames config (``cfg.frontend == "frames"``) seeded
+    ``standard_normal`` frame embeddings ``[length, d_model]`` in fp32, as
+    the JAX serve command draws them. ``crossing`` > 0 (a sliding-window
+    config only) redraws the lengths of the first ``crossing`` prompts in
+    ``[window - 26, window - 6]``, so that 32 new tokens carry them across
+    the window, and of the next ``crossing`` in ``(window, 1.5 window]``,
+    longer than the ring. ``lengths`` sets the lengths of the last
+    ``len(lengths)`` prompts."""
     rng = np.random.default_rng(seed)
     lens = rng.integers(lo, hi + 1, size=n)
     if crossing:
@@ -126,6 +145,13 @@ def prompts_for(cfg, n: int, lo: int, hi: int, seed: int, *,
         lens[:crossing] = rng.integers(w - 26, w - 5, size=crossing)
         lens[crossing:2 * crossing] = rng.integers(w + 1, w + w // 2 + 1,
                                                    size=crossing)
+    if lengths:
+        if len(lengths) > n:
+            raise ValueError(f"{len(lengths)} lengths for {n} prompts")
+        lens[n - len(lengths):] = lengths
+    if cfg.frontend == "frames":
+        return [rng.standard_normal((int(m), cfg.d_model))
+                .astype(np.float32) for m in lens]
     return [rng.integers(0, cfg.vocab, size=int(m)).astype(np.int32)
             for m in lens]
 
@@ -364,7 +390,8 @@ def run(args) -> dict:
     cfg = configs.smoke(args.arch) if args.smoke else configs.get(args.arch)
     params = registry.init_params(cfg, seed=args.seed, device=dev)
     prompts = prompts_for(cfg, args.requests, args.min_prompt,
-                          args.max_prompt, args.seed, crossing=args.crossing)
+                          args.max_prompt, args.seed, crossing=args.crossing,
+                          lengths=getattr(args, "lengths", ()))
     max_seq = args.max_seq or default_max_seq(cfg)
     sp = SamplingParams(temperature=args.temperature, top_k=args.top_k,
                         top_p=args.top_p, seed=args.sampling_seed)
@@ -419,6 +446,8 @@ def main(argv=None) -> None:
     ap.add_argument("--min-prompt", type=int, default=16)
     ap.add_argument("--max-prompt", type=int, default=256)
     ap.add_argument("--max-new", type=int, default=32)
+    ap.add_argument("--lengths", type=int, nargs="*", default=(),
+                    help="the lengths of the last prompts")
     ap.add_argument("--crossing", type=int, default=0,
                     help="prompts just under and past the window, each")
     ap.add_argument("--chaos", default=None, metavar="PLAN",

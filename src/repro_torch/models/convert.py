@@ -5,12 +5,15 @@ run under ``lax.scan``); the port keeps one dict per layer. The dense
 decoder and the mixture of experts stack ``layers`` as ``[n_layers,
 ...]``; the Griffin hybrid stacks ``periods`` (``rec`` as ``[P, 2, ...]``,
 its two recurrent blocks, and ``attn`` as ``[P, ...]``) and ``tail`` as
-``[T, ...]``. Leaf names and the layout of each leaf are the same on both
-sides (an MoE layer: ``attn``, ``router [D, E]``, ``w_gateup [E, D,
-2F]``, ``w_down [E, F, D]``, ``attn_norm``, ``mlp_norm``), so the
-conversion unstacks, copies and casts as the family's ``cast_params``
-says (matrix weights, embeddings and biases to the compute dtype; norm
-weights, the MoE router and the RG-LRU gates in fp32).
+``[T, ...]``; the xLSTM stacks ``periods`` (``mlstm`` as ``[P, 7, ...]``,
+``slstm`` as ``[P, ...]``); the encoder-decoder ``enc_layers`` and
+``dec_layers``, with ``enc_norm`` beside them. Leaf names and the layout
+of each leaf are the same on both sides (an MoE layer: ``attn``, ``router
+[D, E]``, ``w_gateup [E, D, 2F]``, ``w_down [E, F, D]``, ``attn_norm``,
+``mlp_norm``), so the conversion unstacks, copies and casts as the
+family's ``cast_params`` says (matrix weights, embeddings and biases to
+the compute dtype; norm weights, the MoE router, the RG-LRU gates and the
+mLSTM gates in fp32).
 The JAX tree itself is never imported here: the caller hands over
 ``jax.tree.map(np.asarray, params)``.
 """
@@ -59,6 +62,25 @@ def params_from_jax(np_tree: dict, cfg: ModelConfig, device=None) -> dict:
                             "attn": _unstack(periods["attn"], i)}
                            for i in range(n_p)]
         tree["tail"] = [_unstack(tail, i) for i in range(n_t)]
+    elif cfg.family == "xlstm":
+        periods = np_tree["periods"]
+        n_p = _stacked(periods["slstm"], "norm")
+        n_m = np.asarray(periods["mlstm"]["norm"]).shape[1]
+        n = (n_m + 1) * n_p
+        tree["periods"] = [{"mlstm": [_unstack(periods["mlstm"], i, j)
+                                      for j in range(n_m)],
+                            "slstm": _unstack(periods["slstm"], i)}
+                           for i in range(n_p)]
+    elif cfg.family == "encdec":
+        enc, dec = np_tree["enc_layers"], np_tree["dec_layers"]
+        n_e = _stacked(enc, "attn_norm")
+        if n_e != cfg.enc_layers:
+            raise ValueError(f"tree has {n_e} encoder layers, config "
+                             f"{cfg.enc_layers}")
+        n = _stacked(dec, "attn_norm")
+        tree["enc_layers"] = [_unstack(enc, i) for i in range(n_e)]
+        tree["dec_layers"] = [_unstack(dec, i) for i in range(n)]
+        tree["enc_norm"] = _tensor(np_tree["enc_norm"])
     else:
         n = _stacked(np_tree["layers"], "attn_norm")
         tree["layers"] = [_unstack(np_tree["layers"], i) for i in range(n)]

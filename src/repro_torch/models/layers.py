@@ -2,7 +2,8 @@
 
 Every layer calls the kernels through ``repro_torch.kernels.ops``, never a
 kernel module directly. Projections are plain matrix products; the
-prefill attention (causal, windowed where the config has a window), the
+prefill attention (causal, windowed where the config has a window;
+non-causal in the encoder-decoder's encoder), the
 suffix prefill's two-segment attention, the rotary embedding and the
 decode-cache write are plain PyTorch, the attention and rope in fp32, as
 the JAX package computes them in jnp outside any Pallas kernel.
@@ -100,13 +101,18 @@ def out_proj(p, o, dtype):
     return o.flatten(-2) @ p["wo"].reshape(h * dh, d).to(dtype)
 
 
-def flash_attention(q, k, v, *, window=None, chunk: int = 512):
-    """Causal self-attention in fp32, optionally over a sliding window of
-    ``window`` positions (query i sees keys i - window < j <= i). q:
-    ``[B, Sq, Hq, dh]``, k/v: ``[B, Skv, Hkv, dh]`` (GQA by head
-    grouping). KV is walked in ``chunk``-row steps with an online softmax,
-    as the JAX ``_flash_fwd_scan`` does, so the scores of one step
-    (``[B, Hkv, G, Sq, chunk]``) are the largest temporary."""
+def flash_attention(q, k, v, *, causal: bool = True, window=None,
+                    chunk: int = 512):
+    """Self-attention in fp32: causal, optionally over a sliding window of
+    ``window`` positions (query i sees keys i - window < j <= i), or with
+    ``causal=False`` over every key (the encoder's). q: ``[B, Sq, Hq,
+    dh]``, k/v: ``[B, Skv, Hkv, dh]`` (GQA by head grouping). KV is walked
+    in ``chunk``-row steps with an online softmax, as the JAX
+    ``_flash_fwd_scan`` does, so the scores of one step (``[B, Hkv, G, Sq,
+    chunk]``) are the largest temporary. As in JAX, K/V are zero-padded to
+    a multiple of ``min(chunk, Skv)`` rows: a causal mask hides the pad
+    rows, a non-causal call masks nothing, so they take softmax weight
+    (score 0, value 0) there."""
     b, sq, hq, dh = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
@@ -125,11 +131,12 @@ def flash_attention(q, k, v, *, window=None, chunk: int = 512):
             ks = torch.nn.functional.pad(ks, pad)
             vs = torch.nn.functional.pad(vs, pad)
         s = torch.einsum("bhgqd,bkhd->bhgqk", qf, ks)
-        k_pos = c0 + torch.arange(chunk, device=q.device)
-        mask = k_pos[None, :] <= q_pos[:, None]
-        if window is not None:
-            mask &= (q_pos[:, None] - k_pos[None, :]) < window
-        s = torch.where(mask, s, MASKED)
+        if causal:
+            k_pos = c0 + torch.arange(chunk, device=q.device)
+            mask = k_pos[None, :] <= q_pos[:, None]
+            if window is not None:
+                mask &= (q_pos[:, None] - k_pos[None, :]) < window
+            s = torch.where(mask, s, MASKED)
         m_new = torch.maximum(m, s.amax(dim=-1))
         p = torch.exp(s - m_new[..., None])
         alpha = torch.exp(m - m_new)

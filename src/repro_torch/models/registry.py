@@ -1,17 +1,21 @@
-"""Architecture registry: one API over the model families the port serves
-(the dense decoder of ``transformer.py``, the mixture of experts of
-``moe.py`` and the Griffin hybrid of ``recurrentgemma.py``) and over both
+"""Architecture registry: one API over every model family of the JAX
+package (the dense decoder of ``transformer.py``, the mixture of experts
+of ``moe.py``, the Griffin hybrid of ``recurrentgemma.py``, the xLSTM of
+``xlstm.py`` and the encoder-decoder of ``seamless.py``) and over both
 KV-cache layouts, the contiguous per-slot cache and the paged pool (with
 the radix prefix cache's suffix prefill and page copy). A family's flags
 say what the serving engine may do with it: ``pad_prefill_ok``,
 ``paged_ok`` and ``prefix_cache_ok`` are all False for the MoE family,
-whose capacity routing couples tokens and slots, and for the hybrid, whose
-recurrent state absorbs every token and does not page.
+whose capacity routing couples tokens and slots, for the hybrid and the
+xLSTM, whose recurrent state absorbs every token and does not page, and
+for the encoder-decoder, whose bidirectional encoder takes its frames at
+exact length and whose cross cache is indexed by the source.
 
 Each family's ``cache_spec`` gives the contiguous cache's leaves with their
 logical axes (``batch``, ``kv_seq``, ...), and ``write_slot`` writes a
 request's prefill cache along them: the dense K/V hold the slot on axis 1,
-the Griffin recurrent states ``[periods, 2, slots, ...]`` on axis 2.
+the Griffin and xLSTM recurrent states ``[periods, stack, slots, ...]`` on
+axis 2.
 
 ``init_params`` is an entry point: it builds on ``cuda`` unless the
 caller passes ``device="cpu"``.
@@ -23,9 +27,11 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import moe, recurrentgemma, transformer
+from repro_torch.models import (moe, recurrentgemma, seamless, transformer,
+                                xlstm)
 
-_FAMILY = {"dense": transformer, "moe": moe, "hybrid": recurrentgemma}
+_FAMILY = {"dense": transformer, "moe": moe, "hybrid": recurrentgemma,
+           "xlstm": xlstm, "encdec": seamless}
 
 
 def module_for(cfg: ModelConfig):
@@ -90,15 +96,27 @@ def cache_spec(cfg: ModelConfig, batch: int, seq: int):
 def state_leaves(cfg: ModelConfig) -> tuple:
     """The contiguous cache's leaves that have no ``kv_seq`` axis: state
     that a decode step overwrites whole (the Griffin conv and RG-LRU
-    states), where K/V leaves get one new row a step."""
+    states, all six xLSTM leaves), where K/V leaves get one new row a
+    step."""
     _, axes = cache_spec(cfg, 1, 1)
     return tuple(name for name, ax in axes.items() if "kv_seq" not in ax)
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq: int, device) -> dict:
-    """A zeroed contiguous cache for ``cfg``: ``batch`` slots of ``seq``
-    rows (a ``window``-row ring for a sliding-window config)."""
+    """A fresh contiguous cache for ``cfg``: ``batch`` slots of ``seq``
+    rows (a ``window``-row ring for a sliding-window config), zeroed but
+    for the leaves the family's ``CACHE_FILL`` names (the xLSTM
+    stabilisers)."""
     return module_for(cfg).init_cache(cfg, batch, seq, device)
+
+
+def reset_cache(cfg: ModelConfig, cache: dict) -> dict:
+    """Put every leaf of ``cache`` back to ``init_cache``'s values, in
+    place."""
+    fill = getattr(module_for(cfg), "CACHE_FILL", {})
+    for name, t in cache.items():
+        t.fill_(fill.get(name, 0.0))
+    return cache
 
 
 def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
@@ -144,9 +162,11 @@ def write_slot(cfg: ModelConfig, cache, new, slot: int):
     A leaf is written at ``slot`` of its ``batch`` axis. A leaf without a
     ``kv_seq`` axis (recurrent state) is written whole, so nothing of the
     slot's last occupant survives in it. Along ``kv_seq`` the S rows of
-    ``new`` go to ``[0, S)``, and rows past S keep what they held
-    (decode's ``kv_len`` never reaches them before overwriting); when S is
-    more than the slot holds, the last rows are kept. ``prefill`` has
+    ``new`` go to ``[0, S)``, and rows past S keep what they held: the
+    self-attention K/V's ``kv_len`` never reaches them before decode
+    overwrites them, but the encoder-decoder's cross K/V are read whole,
+    so there the last occupant's rows past S take part (as in JAX). When
+    S is more than the slot holds, the last rows are kept. ``prefill`` has
     already laid a prompt longer than the window out as the ring."""
     _, axes = cache_spec(cfg, 1, 1)
     for name, c in cache.items():

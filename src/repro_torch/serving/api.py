@@ -19,6 +19,8 @@ tree) is shared across calls, and request ids keep increasing, so one
 request. No request is dropped: one the engine leaves unfinished (it
 stopped making progress, or ``max_steps`` ran out) finishes as
 ``failed``, as every other outcome does, with its ``finish_reason``.
+A prompt is token ids ``[S]``, or for a frames config (the
+encoder-decoder) frame embeddings ``[S, d_model]``; ``prompt_len`` is S.
 """
 
 from __future__ import annotations
@@ -59,7 +61,7 @@ class RequestOutput:
     (where there is one) and possibly part of a stream."""
 
     rid: int
-    prompt_len: int
+    prompt_len: int                     # tokens, or frames
     tokens: list
     ttft_s: Optional[float] = None      # submit -> first token
     preemptions: int = 0                # times evicted and requeued

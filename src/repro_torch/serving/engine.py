@@ -69,11 +69,20 @@ overwrites and ``kv_len`` masks until then), and a resident slot the row
 of its next write.
 
 **Mixed caches.** A contiguous cache may hold recurrent state beside the
-K/V (the Griffin hybrid: ``conv``, ``h``, ``tconv``, ``th``). Admission
-writes every leaf of the slot along the axes the family names
-(``registry.write_slot``), so nothing of the slot's last occupant
-survives, a re-prefilled (recomputed) request included; recovery zeroes
-every leaf in place.
+K/V (the Griffin hybrid: ``conv``, ``h``, ``tconv``, ``th``) or instead
+of it (the xLSTM's six state leaves). Admission writes every leaf of the
+slot along the axes the family names (``registry.write_slot``), so
+nothing of a state leaf's last occupant survives, a re-prefilled
+(recomputed) request included; recovery puts every leaf back to a fresh
+cache's values in place.
+
+**Frame prompts** (``cfg.frontend == "frames"``, the encoder-decoder). A
+prompt is a float ``[S, d_model]`` array of frame embeddings: admission
+rejects non-finite values, prefill takes the frames as fp32, and the
+slot's first decode step is at position 1 (its prefill decoded BOS at
+0). Crash recovery on the contiguous cache fails a frames survivor
+("lost to device-fault recovery"), since its generated tokens cannot be
+folded back into a float prompt to recompute it.
 
 **Preemption** (paged pool below full subscription). Admission waits for
 pages; a decode write that finds the pool dry settles the in-flight step
@@ -155,7 +164,7 @@ class Request:
     """One generation request: prompt, budget, sampling, and its stream."""
 
     rid: int
-    prompt: np.ndarray                  # token ids [S]
+    prompt: np.ndarray                  # token ids [S] (or frames [S, D])
     max_new_tokens: int = 16
     sampling: Optional[SamplingParams] = None   # None -> engine default
     priority: int = 0                   # read by PriorityScheduler
@@ -232,7 +241,8 @@ class Engine:
         # speculative decoding: ``spec_config`` as requested (its counters
         # show even when inert), ``spec`` the one in effect
         self.spec_config = spec
-        self.spec = spec if spec is not None and self.cm.paged else None
+        self.spec = spec if spec is not None and self.cm.paged \
+            and cfg.frontend != "frames" else None
         self._drafter = None
         if self.spec is not None:
             self._drafter = make_drafter(spec, cfg, slots, max_seq,
@@ -542,14 +552,22 @@ class Engine:
         n = len(prompt)
         if n == 0:
             return "empty prompt"
-        if prompt.ndim != 1:
-            return f"token prompt must be 1-d, got shape {prompt.shape}"
-        if not np.issubdtype(prompt.dtype, np.integer):
-            return f"token prompt must be integer-typed, got {prompt.dtype}"
-        lo, hi = int(prompt.min()), int(prompt.max())
-        if lo < 0 or hi >= self.cfg.vocab:
-            return (f"token id {lo if lo < 0 else hi} outside "
-                    f"[0, {self.cfg.vocab})")
+        if self.cfg.frontend == "frames":
+            if prompt.shape[1:] != (self.cfg.d_model,):
+                return (f"frame prompt must be [S, {self.cfg.d_model}], "
+                        f"got shape {prompt.shape}")
+            if not np.all(np.isfinite(prompt)):
+                return "non-finite values in frame prompt"
+        else:
+            if prompt.ndim != 1:
+                return f"token prompt must be 1-d, got shape {prompt.shape}"
+            if not np.issubdtype(prompt.dtype, np.integer):
+                return ("token prompt must be integer-typed, got "
+                        f"{prompt.dtype}")
+            lo, hi = int(prompt.min()), int(prompt.max())
+            if lo < 0 or hi >= self.cfg.vocab:
+                return (f"token id {lo if lo < 0 else hi} outside "
+                        f"[0, {self.cfg.vocab})")
         if n > self.max_seq - 1:
             return (f"prompt length {n} cannot fit max_seq={self.max_seq} "
                     "(no room to emit a token)")
@@ -727,9 +745,15 @@ class Engine:
                 self._deactivate(i)
                 continue
             slot.req = req
-            slot.dpos = n
+            slot.dpos = self._start_pos(n)
             slot.demitted = len(req.out_tokens)
             slot.dactive = True
+
+    def _start_pos(self, n: int) -> int:
+        """The position of a slot's first decode step after an ``n``-row
+        prefill: n, or 1 for the encoder-decoder (its prefill decoded BOS
+        at 0; the frames are the encoder's, not the decoder's)."""
+        return 1 if self.cfg.family == "encdec" else n
 
     def _first_token(self, logits, req: Request, sp: SamplingParams) -> int:
         """The token a prefill emits: the argmax, or the draw with index
@@ -776,13 +800,15 @@ class Engine:
             prompt = np.concatenate([prompt, np.zeros(b - n, prompt.dtype)])
         self._prefill_shapes.add(len(prompt))
         self._prefills += 1
-        tokens = torch.tensor(prompt[None], dtype=torch.long,
-                              device=self.device)
+        frames = self.cfg.frontend == "frames"
+        tokens = torch.tensor(prompt[None], device=self.device,
+                              dtype=torch.float32 if frames else torch.long)
         logits, kv = registry.prefill(self.params, self.cfg, tokens,
                                       length=n if self._pad_ok else None)
         self.cache = self.cm.write(self.cache, kv, slot=i, pages=pages)
         tok0 = self._first_token(logits, req, sp)
-        self._set_slot(i, tok0, n, len(req.out_tokens) + 1, req, sp)
+        self._set_slot(i, tok0, self._start_pos(n), len(req.out_tokens) + 1,
+                       req, sp)
         return tok0
 
     def _prefill_suffix(self, i: int, req: Request, prompt: np.ndarray,
@@ -934,13 +960,13 @@ class Engine:
         return True
 
     def _reset_device_state(self) -> None:
-        """Zero the pool, the carry, the emit buffer, the drafts and the
-        device table in place: the captured step keeps reading and
-        writing these very tensors, so none is reallocated (the state a
-        fresh engine starts from: all slots idle, every table entry on
-        the trap page)."""
-        for t in self.cache.values():
-            t.zero_()
+        """Put the pool back to a fresh cache's values (zeros; the xLSTM
+        stabilisers at their start) and zero the carry, the emit buffer,
+        the drafts and the device table, in place: the captured step
+        keeps reading and writing these very tensors, so none is
+        reallocated (the state a fresh engine starts from: all slots
+        idle, every table entry on the trap page)."""
+        registry.reset_cache(self.cfg, self.cache)
         for t in (self._token, self._pos, self._active, self._emitted,
                   self._max_new, self._seed, self._temp, self._topk,
                   self._emit):
@@ -980,6 +1006,13 @@ class Engine:
             req.swap_state = None
             if self.cm.paged:
                 self._swap_out(i)
+            elif np.asarray(req.prompt).ndim != 1:
+                # frames on the contiguous cache: generated tokens cannot
+                # be folded back into a float prompt to recompute it
+                self._finish(req, "failed",
+                             f"lost to device-fault recovery: {exc}")
+                slot.req = None
+                continue
             req.preemptions += 1
             survivors.append(req)
         for i, slot in enumerate(self.slots):
