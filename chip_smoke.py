@@ -180,6 +180,27 @@ Phases, each of which fails the run (non-zero exit) on any error:
    scale (at the JAX init's scale one ulp of a block's input moves its
    output past the fp32 tolerance), seamless's also on one slot reused
    by a shorter source.
+6. Train: (a) qwen2-0.5b at full width and depth through
+   ``launch.train.run`` (bf16 compute, fp32 masters and AdamW), 8 steps
+   of 8 x 1,024 tokens in 2 microbatches, a checkpoint every 4 steps
+   (7.6 GB each, under ``build/train_ckpt``, removed after) and a failure
+   injected at step 6: the restart restores step 4 and its cursor, and
+   the rerun steps 4-5 must give the first attempt's losses bit for bit
+   (``torch.use_deterministic_algorithms(True)``); losses finite, launch
+   counts from ``train_launches`` (rmsnorm 4 L + 1 and silu 2 L a
+   microbatch: each layer's forward and its recompute, the final norm
+   once; none of kernels 3-5). It prints the median step, tokens/s, the
+   peak memory and the step's FLOP bound (6 N T + the causal attention,
+   over 989 TFLOP/s) and its share. (b) One step of olmoe-1b-7b (1
+   layer), recurrentgemma-2b (1 period), xlstm-1.3b (1 period) and
+   seamless-m4t-large-v2 (1 encoder and 1 decoder layer) at full width,
+   2 x 512 tokens, and one of qwen2-0.5b with compressed gradients:
+   finite loss and norm, launches as ``train_launches`` gives. (c) The
+   gradients of the rmsnorm and silu autograd Functions against
+   autograd through the plain versions on the card, fp32 and bf16 at
+   qwen2's training shapes, and an fp32 step of qwen2-0.5b cut to 2
+   layers on the card against the same step on the CPU. The phase's
+   wall time is printed.
 
 ``--time-serve SRC ARCH`` runs no phase: it serves phase 4's fully
 subscribed workload of ARCH (qwen2-0.5b, h2o-danube-1.8b or
@@ -2432,6 +2453,353 @@ def phase_reference_families() -> bool:
     return ok
 
 
+# phase 6: qwen2-0.5b trained at full width and depth through
+# launch/train.run, checkpoints every 4 steps and a failure at step 6
+TRAIN = dict(arch="qwen2-0.5b", steps=8, batch=8, seq=1024, microbatches=2,
+             ckpt_every=4, fail_at=6)
+# one step of each other family at full width, the depth cut to one layer
+# (olmoe, seamless: one encoder and one decoder layer) or one period
+TRAIN_CUTS = (("olmoe-1b-7b", 1), ("recurrentgemma-2b", 3),
+              ("xlstm-1.3b", 8), ("seamless-m4t-large-v2", 1))
+TRAIN_CUT_SHAPE = (2, 512)          # batch, seq
+TRAIN_COMPRESS_SHAPE = (4, 1024)
+
+
+def train_launches(cfg, passes: int) -> dict:
+    """What ``passes`` microbatches of training launch: each layer's
+    forward and its recompute in the backward pass (``layers.remat``)
+    launch what a prefill does, the final norm (outside the recompute)
+    once; the hybrid's tail blocks are not recomputed (a two-pass rmsnorm
+    twice a call). The backward passes of the kernels' Functions are
+    plain PyTorch."""
+    from repro_torch.kernels import ops
+
+    norm = 2 if ops.get_variant("fused_add_rmsnorm").two_pass else 1
+    want = dict.fromkeys(SOURCES, 0)
+    n = cfg.n_layers
+    if cfg.family in ("dense", "moe"):
+        norms, silu = 4 * n + 1, 2 * n
+    elif cfg.family == "hybrid":
+        periods = n // 3
+        norms, silu = 0, 6 * periods + (n - 3 * periods)
+    elif cfg.family == "encdec":
+        norms, silu = 0, 2 * (cfg.enc_layers + n)
+    else:
+        norms, silu = 0, 0
+    want["fused_add_rmsnorm"] = norm * norms * passes
+    want["silu_and_mul"] = silu * passes
+    return want
+
+
+def train_flops(cfg, batch: int, seq: int) -> tuple[float, int]:
+    """(the operations of one training step, the matrix parameters):
+    ``6 N T`` for the N weights of the matrix products (the output head
+    included, the embedding lookup not) over T tokens, and three times the
+    causal attention's useful products (``2 B Hq S^2 dh`` a layer
+    forward)."""
+    d, hq, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    layer = d * hq * dh * 2 + 2 * d * hkv * dh + 3 * d * cfg.d_ff
+    n = cfg.n_layers * layer + d * cfg.padded_vocab
+    attn = 3 * 2 * batch * hq * seq * seq * dh * cfg.n_layers
+    return 6.0 * n * batch * seq + attn, n
+
+
+def _finite(*xs) -> bool:
+    return all(bool(torch.isfinite(torch.as_tensor(x)).all()) for x in xs)
+
+
+def phase_train_qwen2(card: str) -> tuple[bool, dict]:
+    """6 (a): ``launch.train.run`` on qwen2-0.5b at full width and depth
+    (bf16 compute, fp32 masters), 8 steps of 8 x 1,024 tokens in 2
+    microbatches, checkpoints every 4 steps, a failure injected at step 6:
+    the restart restores step 4 and its cursor and reruns steps 4 and 5,
+    whose losses must equal the first attempt's bit for bit (deterministic
+    algorithms on). Checks the losses finite and the launches
+    (``train_launches``); prints the median step, tokens/s, the peak
+    memory and the FLOP bound's share."""
+    import shutil
+
+    import torch.utils.deterministic
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    t = TRAIN
+    cfg = configs.get(t["arch"])
+    ckpt = os.path.join(ROOT, "build", "train_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    # the rerun's equal losses rest on one stream and the same algorithms
+    # (cuBLAS is deterministic on one stream): PyTorch read the workspace
+    # size when phase 1 made the first handle, so this setting only
+    # satisfies the check use_deterministic_algorithms makes
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    # the step fills no fresh buffer (deterministic mode would by default)
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    history: list = []
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        out = train.run(arch=t["arch"], smoke=False, steps=t["steps"],
+                        batch=t["batch"], seq=t["seq"],
+                        microbatches=t["microbatches"], ckpt_dir=ckpt,
+                        ckpt_every=t["ckpt_every"], fail_at=t["fail_at"],
+                        log_every=1, device="cuda", history=history)
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.utils.deterministic.fill_uninitialized_memory = fill
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    shutil.rmtree(ckpt, ignore_errors=True)
+    steps = [h[0] for h in history]
+    want_steps = list(range(t["fail_at"])) + list(
+        range(t["fail_at"] - 2, t["steps"]))
+    ok = steps == want_steps
+    log(f"  steps run {steps} (expected {want_steps}) "
+        f"{'ok' if ok else 'WRONG'}")
+    first = {s: loss for s, loss, _ in history[:t["fail_at"]]}
+    rerun = {s: loss for s, loss, _ in history[t["fail_at"]:]}
+    same_ = all(first[s] == rerun[s] for s in range(t["fail_at"] - 2,
+                                                   t["fail_at"]))
+    ok &= same_
+    log("  restart: steps 4-5 losses " + ", ".join(
+        f"{first[s]!r} / {rerun[s]!r}" for s in (4, 5))
+        + f" (first attempt / rerun): {'bit for bit' if same_ else 'DIFFER'}"
+        " under torch.use_deterministic_algorithms(True)")
+    fin = _finite([h[1] for h in history])
+    ok &= fin
+    log(f"  losses finite {fin}: " + ", ".join(
+        f"{s_}: {loss:.4f}" for s_, loss, _ in history))
+    want = train_launches(cfg, t["microbatches"] * len(history))
+    ok &= check_launches({"launches": counts}, want)
+    # the median step past each attempt's first (its warm-up)
+    warm = [h[2] for i, h in enumerate(history)
+            if i and h[0] == history[i - 1][0] + 1]
+    step_s = float(np.median(warm))
+    tokens = t["batch"] * t["seq"]
+    flops, n = train_flops(cfg, t["batch"], t["seq"])
+    bound_ms = 1e3 * flops / PEAK_OPS_S[torch.bfloat16]
+    log(f"  {cfg.name} train step ({t['batch']} x {t['seq']} tokens, "
+        f"{t['microbatches']} microbatches, {cfg.dtype} compute, fp32 "
+        f"masters and AdamW): median {1e3 * step_s:.1f} ms "
+        f"over {len(warm)} steps, {tokens / step_s:.0f} tokens/s, peak "
+        f"memory {peak / 2**30:.2f} GiB; FLOP bound {bound_ms:.2f} ms "
+        f"({flops / 1e12:.2f} TFLOP: 6 x {n / 1e6:.1f} M x {tokens} + "
+        f"attention, at 989 TFLOP/s), {100 * bound_ms / (1e3 * step_s):.1f}%"
+        f" of it; phase 6a {wall:.1f} s; {card}")
+    return ok, counts
+
+
+def train_cut_runs() -> list:
+    """6 (b)'s runs: (config, ``TrainConfig``, (batch, seq)) of each
+    ``TRAIN_CUTS`` family and of the compressed qwen2 step."""
+    from repro_torch import configs
+    from repro_torch.training.train_step import TrainConfig
+
+    runs = [(dataclasses.replace(
+        configs.get(arch), n_layers=depth,
+        **({"enc_layers": depth} if arch.startswith("seamless") else {})),
+        TrainConfig(), TRAIN_CUT_SHAPE) for arch, depth in TRAIN_CUTS]
+    runs.append((configs.get("qwen2-0.5b"), TrainConfig(compress_grads=True),
+                 TRAIN_COMPRESS_SHAPE))
+    return runs
+
+
+def train_kernel_shapes(cfg, batch: int, seq: int, microbatches: int) -> dict:
+    """The input shape a training microbatch hands each kernel:
+    ``fused_add_rmsnorm``'s x and residual ``[b, s, d]`` (the dense and MoE
+    families), ``silu_and_mul``'s ``[b, s, 2 d_ff]`` (MoE: the experts'
+    ``[E, N C, 2 F]``; the xLSTM launches neither)."""
+    from repro_torch.models import moe
+
+    b, out = batch // microbatches, {}
+    if cfg.family in ("dense", "moe"):
+        out["fused_add_rmsnorm"] = (b, seq, cfg.d_model)
+    if cfg.family == "moe":
+        g = min(moe.GROUP, b * seq)
+        out["silu_and_mul"] = (cfg.n_experts,
+                               b * seq // g * moe.capacity(cfg, g),
+                               2 * cfg.expert_ff)
+    elif cfg.family != "xlstm":
+        out["silu_and_mul"] = (b, seq, 2 * cfg.d_ff)
+    return out
+
+
+def phase_train_cuts() -> tuple[bool, dict]:
+    """6 (b): one train step (bf16 compute, fp32 masters) of each other
+    family at full width, the depth cut (``TRAIN_CUTS``), and one of
+    qwen2-0.5b at full depth with compressed gradients: a finite loss and
+    gradient norm and the launches ``train_launches`` gives."""
+    from repro_torch.data.pipeline import _batch_np
+    from repro_torch.kernels import ops
+    from repro_torch.models import registry
+    from repro_torch.training import compression
+    from repro_torch.training.train_step import init_state, make_train_step
+
+    ok, counts = True, {}
+    for cfg, tcfg, (b, s) in train_cut_runs():
+        params = registry.init_master_params(cfg, seed=0, device="cuda")
+        state = init_state(cfg, tcfg, params)
+        step = make_train_step(cfg, tcfg)
+        batch = {k: torch.from_numpy(v).cuda()
+                 for k, v in _batch_np(cfg, b, s, 0, 0).items()}
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        loss, gn = float(m["loss"]), float(m["grad_norm"])
+        dt = time.perf_counter() - t0
+        path = "train_" + cfg.name.split("-")[0] + (
+            "_compressed" if tcfg.compress_grads else "")
+        counts[path] = ops.launch_counts()
+        fin = _finite(loss, gn)
+        ok &= fin
+        extra = (f", compressed gradients, wire "
+                 f"{compression.wire_bytes(params) / 1e9:.3f} GB a step"
+                 if tcfg.compress_grads else "")
+        log(f"  {cfg.name} ({cfg.n_layers} layers"
+            + (f" + {cfg.enc_layers} encoder" if cfg.enc_layers else "")
+            + f", {b} x {s} tokens{extra}): loss {loss:.4f}, grad norm "
+            f"{gn:.4f}, finite {fin}, first step {1e3 * dt:.0f} ms")
+        ok &= check_launches({"launches": counts[path]},
+                             train_launches(cfg, tcfg.microbatches))
+        del params, state, step, m
+        gc.collect()
+        torch.cuda.empty_cache()
+    return ok, counts
+
+
+def kernel_function_case(name: str, shape: tuple, dtype) -> list:
+    """[(what, the Function's value, the plain version's)] for one kernel
+    at ``shape``: its outputs (the kernel's launch, which must be the one
+    launch of the call) against the plain version's on the same inputs,
+    then its gradients against autograd through the plain version."""
+    from repro_torch.kernels import ops, ref
+
+    if name == "fused_add_rmsnorm":
+        x, r, dy, dr = (randn(shape, dtype, s) for s in range(4))
+        w = randn(shape[-1:], torch.float32, 4, 0.1) + 1.0
+        leaves = [t.requires_grad_() for t in (x, r, w)]
+        fn, plain = ops.fused_add_rmsnorm, ref.fused_add_rmsnorm
+        cots = (dy, dr)
+        whats = ("y", "r'", "dx", "dresidual", "dweight")
+    else:
+        leaves = [randn(shape, dtype, 5, 3.0).requires_grad_()]
+        fn, plain = ops.silu_and_mul, ref.silu_and_mul
+        cots = (randn(shape[:-1] + (shape[-1] // 2,), dtype, 6),)
+        whats = ("out", "dx")
+    n0 = ops.launch_counts()[name]
+    got = fn(*leaves)
+    torch.cuda.synchronize()
+    launched = ops.launch_counts()[name] - n0
+    want = plain(*leaves)
+    got, want = ((o,) if torch.is_tensor(o) else tuple(o)
+                 for o in (got, want))
+    got_g = torch.autograd.grad(got, leaves, cots)
+    want_g = torch.autograd.grad(want, leaves, cots)
+    two = ops.get_variant(name).two_pass if name == "fused_add_rmsnorm" \
+        else False
+    if launched != (2 if two else 1):
+        raise RuntimeError(f"{name} {shape}: the Function launched the "
+                           f"kernel {launched} times")
+    return list(zip(whats, [o.detach() for o in got] + list(got_g),
+                    [o.detach() for o in want] + list(want_g)))
+
+
+def phase_train_grads() -> bool:
+    """6 (c): each kernel's autograd Function on the card at every shape
+    that 6 (a) and 6 (b) hand it (``train_kernel_shapes``; their dtype,
+    bf16, and qwen2's in fp32 too): the kernel's outputs against the plain
+    version's, and the gradients against autograd through the plain
+    version, at ``TOL``. Then one fp32 step of qwen2-0.5b cut to 2 layers
+    (microbatches 2, ``cast_params=None``, AdamW at a rate of 1e-3 from the
+    first step) on the card against the same step on the CPU: the loss and
+    the norm at ``TOL``, both moments within 1e-4 of each leaf's largest,
+    each parameter's move within 1e-3 of the rate; left out of the moves
+    (and counted, at most 1%) are the elements whose gradient the two
+    sides round apart by more than 2e-4 of its size, where Adam's first
+    step turns a rounding error into up to +-lr (ROADMAP C, reference
+    behaviour 6)."""
+    from repro_torch import configs
+    from repro_torch.data.pipeline import _batch_np
+    from repro_torch.models import registry
+    from repro_torch.training import optimizer, tree
+    from repro_torch.training.train_step import (TrainConfig, init_state,
+                                                 make_train_step)
+
+    ok = True
+    qwen = configs.get(TRAIN["arch"])
+    runs = [(qwen, TRAIN["microbatches"], (TRAIN["batch"], TRAIN["seq"]))]
+    runs += [(cfg, tcfg.microbatches, shape)
+             for cfg, tcfg, shape in train_cut_runs()]
+    cases: dict = {}
+    for cfg, m, (b, s) in runs:
+        for name, shape in train_kernel_shapes(cfg, b, s, m).items():
+            cases.setdefault((name, shape, getattr(torch, cfg.dtype)),
+                             cfg.name)
+            if cfg is qwen:
+                cases.setdefault((name, shape, torch.float32), cfg.name)
+    for (name, shape, dtype), arch in cases.items():
+        errs = [(what, compare(a, b))
+                for what, a, b in kernel_function_case(name, shape, dtype)]
+        good = all(e[2] for _, e in errs)
+        ok &= good
+        log(f"  {name} {list(shape)} {str(dtype)[6:]} ({arch}): Function "
+            f"vs plain max_abs " + ", ".join(
+                f"{what} {e[0]:.3e}" for what, e in errs)
+            + f" {'ok' if good else 'MISMATCH'}")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    lr, apart = 1e-3, 2e-4
+    cfg = dataclasses.replace(qwen, n_layers=2, dtype="float32")
+    tcfg = TrainConfig(microbatches=2, cast_params=None,
+                       adamw=optimizer.AdamWConfig(lr=lr, warmup_steps=0))
+    batch = _batch_np(cfg, 2, 128, 0, 0)
+    p0 = tree.leaves(registry.init_master_params(cfg, seed=0, device="cpu"))
+    outs = []
+    for dev in ("cuda", "cpu"):
+        params = registry.init_master_params(cfg, seed=0, device="cpu")
+        params = tree.map_tree(lambda p: p.to(dev), params)
+        state = init_state(cfg, tcfg, params)
+        params, state, m = make_train_step(cfg, tcfg)(
+            params, state, {k: torch.from_numpy(v).to(dev)
+                            for k, v in batch.items()})
+        outs.append((m, [tree.leaves(t) for t in (
+            params, state["opt"].m, state["opt"].v)]))
+    (m_g, (p_g, mom_g, v_g)), (m_c, (p_c, mom_c, v_c)) = outs
+    good = all(compare(m_g[k].cpu(), m_c[k])[2] for k in ("loss",
+                                                         "grad_norm"))
+    # a first step's moment is (1 - b1) g
+    keep = [(a.cpu() - b).abs() <= apart * torch.maximum(a.cpu().abs(),
+                                                         b.abs())
+            for a, b in zip(mom_g, mom_c)]
+    left = sum(int((~k).sum()) for k in keep)
+    total = sum(k.numel() for k in keep)
+    good &= left <= 0.01 * total
+    move = max(float(((a.cpu() - p) - (b - p))[k].abs().max()) / lr
+               for k, p, a, b in zip(keep, p0, p_g, p_c))
+    mom = max(float((a.cpu() - b).abs().max()
+                    / b.abs().max().clamp(min=1e-30))
+              for a, b in zip(mom_g + v_g, mom_c + v_c))
+    good &= move <= 1e-3 and mom <= 1e-4
+    ok &= good
+    log(f"  fp32 train step of qwen2-0.5b (2 layers, 2 x 128 tokens, 2 "
+        f"microbatches, lr {lr}) card vs cpu: loss {float(m_g['loss']):.6f}"
+        f" / {float(m_c['loss']):.6f}, grad norm "
+        f"{float(m_g['grad_norm']):.6f} / {float(m_c['grad_norm']):.6f}; "
+        f"moves max |diff| {move:.3e} lr (limit 1e-3), moments max |diff| "
+        f"{mom:.3e} of the leaf's largest (limit 1e-4); {left} of {total} "
+        f"elements left out (gradients {apart} apart) "
+        f"{'ok' if good else 'MISMATCH'}")
+    return ok
+
+
 def ptxas_kernels(text: str) -> list:
     """(kernel with its template arguments, registers, spill-store bytes)
     of each kernel in ptxas' report (``-Xptxas -v``), in its order."""
@@ -2597,6 +2965,17 @@ def main() -> int:
     ok["reference"] &= phase_reference_configs()
     ok["reference"] &= phase_reference_families()
     phase_s["reference"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    log("phase 6: train qwen2-0.5b at full width with a restart, one step "
+        "of each other family, the Functions' gradients")
+    free_models()
+    ok["train"], train_counts = phase_train_qwen2(card)
+    cut_ok, cut_counts = phase_train_cuts()
+    ok["train families"] = cut_ok
+    train_counts = {"train_qwen2": train_counts, **cut_counts}
+    ok["train gradients"] = phase_train_grads()
+    phase_s["train"] = time.perf_counter() - t0
+    log(f"  phase 6 {phase_s['train']:.1f} s")
     log("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                       for k, v in phase_s.items()))
     log(f"total {time.perf_counter() - t_start:.1f} s")
@@ -2611,7 +2990,9 @@ def main() -> int:
                                       in request_counts.items()},
                                    "serve_olmoe": olmoe_counts[name],
                                    **{path: c[name] for path, c
-                                      in config_counts.items()}}
+                                      in config_counts.items()},
+                                   **{path: c[name] for path, c
+                                      in train_counts.items()}}
         # the main path: every run but the shipped-genome serve
         row["launches"] = sum(n for path, n in row["launches_by_path"]
                               .items() if path != "serve_shipped")

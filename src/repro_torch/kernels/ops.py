@@ -11,13 +11,24 @@ reintegration); ``get_variant`` reads them back through the kernel
 registry, as the JAX package's ``ops`` does: a kernel with no override
 runs its registered space's shipped genome, and a name with no registered
 space raises KeyError.
+
+Training differentiates the norm and the SwiGLU gate: with grad mode on
+and an input that requires grad, ``fused_add_rmsnorm`` and
+``silu_and_mul`` go through an autograd Function whose forward is the
+same wrapper call (the kernel, counted, on a CUDA tensor) and whose
+backward is the plain PyTorch gradient of the oracle (``ref.*_vjp``): the
+JAX package has no backward kernel, it differentiates its jnp reference.
+Otherwise, as on the serving path, they call the wrapper directly.
 """
 
 from __future__ import annotations
 
+import torch
+
 from repro_torch.kernels import flash_decode as _fd
 from repro_torch.kernels import fused_add_rmsnorm as _rms
 from repro_torch.kernels import merge_attn_states as _merge
+from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import registry as _registry
 from repro_torch.kernels import silu_and_mul as _silu
 
@@ -46,15 +57,56 @@ def get_variant(name: str):
         return _registry.get_space(name).shipped
 
 
+class _SiluAndMul(torch.autograd.Function):
+    """``silu_and_mul`` (the kernel on a CUDA tensor) with the oracle's
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, x, variant):
+        ctx.save_for_backward(x)
+        return _silu.silu_and_mul(x, variant)
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, = ctx.saved_tensors
+        return _ref.silu_and_mul_vjp(x, dout), None
+
+
+class _FusedAddRmsNorm(torch.autograd.Function):
+    """``fused_add_rmsnorm`` (the kernel on a CUDA tensor) with the
+    oracle's gradient, from the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, x, residual, weight, eps, variant):
+        ctx.save_for_backward(x, residual, weight)
+        ctx.eps = eps
+        return _rms.fused_add_rmsnorm(x, residual, weight, eps, variant)
+
+    @staticmethod
+    def backward(ctx, dy, dr):
+        x, residual, weight = ctx.saved_tensors
+        return (*_ref.fused_add_rmsnorm_vjp(x, residual, weight, dy, dr,
+                                            ctx.eps), None, None)
+
+
+def _differentiated(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def silu_and_mul(x):
     """SwiGLU gate: ``silu(x[..., :d]) * x[..., d:]``."""
-    return _silu.silu_and_mul(x, get_variant("silu_and_mul"))
+    variant = get_variant("silu_and_mul")
+    if _differentiated(x):
+        return _SiluAndMul.apply(x, variant)
+    return _silu.silu_and_mul(x, variant)
 
 
 def fused_add_rmsnorm(x, residual, weight, eps: float = 1e-6):
     """Residual add + RMSNorm. Returns ``(y, new_residual)``."""
-    return _rms.fused_add_rmsnorm(x, residual, weight, eps,
-                                  get_variant("fused_add_rmsnorm"))
+    variant = get_variant("fused_add_rmsnorm")
+    if _differentiated(x, residual, weight):
+        return _FusedAddRmsNorm.apply(x, residual, weight, eps, variant)
+    return _rms.fused_add_rmsnorm(x, residual, weight, eps, variant)
 
 
 def merge_attn_states_lse(v_a, s_a, v_b, s_b):

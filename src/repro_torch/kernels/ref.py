@@ -14,6 +14,10 @@ these on the card, and the wrappers use them for tensors on the CPU.
       out = SiLU(gate) * up,  SiLU(z) = z / (1 + e^{-z})
   flash_decode_attention / paged_flash_decode_attention / flash_decode_lse:
       one-token GQA attention over a contiguous or a paged KV cache
+
+``fused_add_rmsnorm_vjp`` and ``silu_and_mul_vjp`` are the gradients of
+the two oracles the training path differentiates (JAX differentiates its
+jnp references): the backward of ``ops``' autograd Functions.
 """
 
 from __future__ import annotations
@@ -52,12 +56,44 @@ def fused_add_rmsnorm(x, residual, weight, eps: float = 1e-6):
     return y.to(x.dtype), r.to(x.dtype)
 
 
+def fused_add_rmsnorm_vjp(x, residual, weight, dy, dr, eps: float = 1e-6):
+    """The gradient of ``fused_add_rmsnorm`` at ``(x, residual, weight)``
+    for the cotangents ``dy`` of y and ``dr`` of ``r'``, from the fp32
+    statistics: with ``inv = rsqrt(mean(r'^2) + eps)`` and ``g = dy w``,
+    ``d r' = inv g - r' inv^3 mean(g r') + dr``, ``dw = sum over rows of
+    dy r' inv``. Returns ``(dx, dresidual, dweight)`` in the inputs'
+    dtypes."""
+    r = x.to(F32) + residual.to(F32)
+    d = r.shape[-1]
+    inv = torch.rsqrt(torch.mean(r * r, dim=-1, keepdim=True) + eps)
+    dyf = dy.to(F32)
+    g = dyf * weight.to(F32)
+    dr_all = inv * g - r * inv ** 3 * (g * r).sum(-1, keepdim=True) / d \
+        + dr.to(F32)
+    dw = (dyf * r * inv).reshape(-1, d).sum(0)
+    return dr_all.to(x.dtype), dr_all.to(residual.dtype), dw.to(weight.dtype)
+
+
 def silu_and_mul(x):
     """SwiGLU gate: ``silu(x[..., :d]) * x[..., d:]``, d = last dim / 2."""
     d = x.shape[-1] // 2
     gate = x[..., :d].to(F32)
     up = x[..., d:].to(F32)
     return (gate * torch.sigmoid(gate) * up).to(x.dtype)
+
+
+def silu_and_mul_vjp(x, dout):
+    """The gradient of ``silu_and_mul`` at ``x`` for the cotangent
+    ``dout``, in fp32: ``d gate = dout up s (1 + gate (1 - s))`` with ``s
+    = sigmoid(gate)``, ``d up = dout gate s``. Returns ``dx`` in x's
+    dtype."""
+    d = x.shape[-1] // 2
+    gate = x[..., :d].to(F32)
+    up = x[..., d:].to(F32)
+    s = torch.sigmoid(gate)
+    do = dout.to(F32)
+    return torch.cat([do * up * s * (1 + gate * (1 - s)), do * gate * s],
+                     dim=-1).to(x.dtype)
 
 
 def _scores(q, k, kv_len, sm_scale):

@@ -14,11 +14,15 @@ of each leaf are the same on both sides (an MoE layer: ``attn``, ``router
 family's ``cast_params`` says (matrix weights, embeddings and biases to
 the compute dtype; norm weights, the MoE router, the RG-LRU gates and the
 mLSTM gates in fp32).
-The JAX tree itself is never imported here: the caller hands over
-``jax.tree.map(np.asarray, params)``.
+With ``master=True`` every leaf stays fp32 (training's master weights);
+the same unstacking maps a JAX gradient tree, whose layout is the
+parameters', onto the port's. The JAX tree itself is never imported here:
+the caller hands over ``jax.tree.map(np.asarray, params)``.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -45,9 +49,11 @@ def _stacked(tree: dict, name: str) -> int:
     return np.asarray(tree[name]).shape[0]
 
 
-def params_from_jax(np_tree: dict, cfg: ModelConfig, device=None) -> dict:
+def params_from_jax(np_tree: dict, cfg: ModelConfig, device=None, *,
+                    master: bool = False) -> dict:
     """The port's parameters for ``cfg`` from the JAX parameter tree (leaves
-    as numpy arrays), on ``device`` (default ``cuda``)."""
+    as numpy arrays), on ``device`` (default ``cuda``): cast as the
+    family's ``cast_params`` says, or every leaf fp32 with ``master``."""
     dev = resolve_device(device)
     tree = {"embed": _tensor(np_tree["embed"]),
             "final_norm": _tensor(np_tree["final_norm"]),
@@ -87,4 +93,6 @@ def params_from_jax(np_tree: dict, cfg: ModelConfig, device=None) -> dict:
     if n != cfg.n_layers:
         raise ValueError(f"tree has {n} stacked layers, config "
                          f"{cfg.n_layers}")
+    if master:
+        cfg = dataclasses.replace(cfg, dtype="float32")
     return registry.module_for(cfg).cast_params(tree, cfg, dev)

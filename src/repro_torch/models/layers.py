@@ -8,6 +8,11 @@ suffix prefill's two-segment attention, the rotary embedding and the
 decode-cache write are plain PyTorch, the attention and rope in fp32, as
 the JAX package computes them in jnp outside any Pallas kernel.
 
+Training adds the cross-entropy (``ce_loss``), the attention's gradient
+(``_FlashAttention``: JAX's recomputing custom VJP, in plain PyTorch as
+JAX's is jnp) and ``remat``, the per-layer recompute the family
+``forward`` functions wrap each layer in.
+
 Shapes keep the JAX package's layout: activations ``[B, S, D]``, heads
 ``[B, S, H, dh]``, projection weights with an explicit head axis
 (``wq [D, Hq, dh]``, ``wo [Hq, dh, D]``).
@@ -16,12 +21,40 @@ Shapes keep the JAX package's layout: activations ``[B, S, D]``, heads
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 
 F32 = torch.float32
 MASKED = -1e30        # finite -inf of the JAX flash attention
+
+
+def _requires_grad(args) -> bool:
+    """True when a tensor in ``args`` (nested dicts, lists and tuples)
+    requires grad."""
+    for a in args:
+        if isinstance(a, torch.Tensor):
+            if a.requires_grad:
+                return True
+        elif isinstance(a, dict):
+            if _requires_grad(a.values()):
+                return True
+        elif isinstance(a, (list, tuple)) and _requires_grad(a):
+            return True
+    return False
+
+
+def remat(fn, *args):
+    """``fn(*args)``, its activations recomputed in the backward pass
+    instead of kept (JAX: ``jax.checkpoint`` with ``nothing_saveable``):
+    ``torch.utils.checkpoint`` when grad mode is on and an argument
+    requires grad, else a plain call, so serving (the xLSTM's chunked
+    prefill, the encoder) runs exactly what it ran before."""
+    if torch.is_grad_enabled() and _requires_grad(args):
+        return torch.utils.checkpoint.checkpoint(
+            fn, *args, use_reentrant=False, preserve_rng_state=False)
+    return fn(*args)
 
 
 def rms_norm(x, w, eps=1e-6):
@@ -73,6 +106,21 @@ def unembed(x, lm_head):
     return x @ lm_head.to(x.dtype)
 
 
+def ce_loss(logits, labels, vocab: int):
+    """Mean next-token cross-entropy over the labels in ``[0, vocab)``, in
+    fp32 (JAX ``layers.ce_loss``): the label's logit is picked by an
+    ``arange == label`` select, and labels outside ``[0, vocab)`` (the
+    padded vocab's columns, negative ids) count for nothing."""
+    logits = logits.to(F32)
+    logz = torch.logsumexp(logits, dim=-1)
+    sel = torch.arange(logits.shape[-1], device=logits.device) \
+        == labels[..., None]
+    gold = torch.where(sel, logits, 0.0).sum(-1)
+    mask = (labels >= 0) & (labels < vocab)
+    nll = torch.where(mask, logz - gold, 0.0)
+    return nll.sum() / torch.clamp(mask.sum(), min=1)
+
+
 def _heads_matmul(x, w):
     """``x [B, S, D] @ w [D, H, dh] -> [B, S, H, dh]``."""
     d, h, dh = w.shape
@@ -101,18 +149,40 @@ def out_proj(p, o, dtype):
     return o.flatten(-2) @ p["wo"].reshape(h * dh, d).to(dtype)
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window=None,
-                    chunk: int = 512):
-    """Self-attention in fp32: causal, optionally over a sliding window of
-    ``window`` positions (query i sees keys i - window < j <= i), or with
-    ``causal=False`` over every key (the encoder's). q: ``[B, Sq, Hq,
-    dh]``, k/v: ``[B, Skv, Hkv, dh]`` (GQA by head grouping). KV is walked
-    in ``chunk``-row steps with an online softmax, as the JAX
-    ``_flash_fwd_scan`` does, so the scores of one step (``[B, Hkv, G, Sq,
-    chunk]``) are the largest temporary. As in JAX, K/V are zero-padded to
-    a multiple of ``min(chunk, Skv)`` rows: a causal mask hides the pad
-    rows, a non-causal call masks nothing, so they take softmax weight
-    (score 0, value 0) there."""
+def _heads_first(t, hkv: int):
+    """``[B, S, Hq, dh]`` -> fp32 ``[B, Hkv, G, S, dh]`` (GQA groups)."""
+    b, s, hq, dh = t.shape
+    return t.to(F32).reshape(b, s, hkv, hq // hkv, dh).permute(0, 2, 3, 1, 4)
+
+
+def _kv_chunk(t, c0: int, chunk: int):
+    """Rows ``[c0, c0 + chunk)`` of ``t [B, Skv, Hkv, dh]`` in fp32,
+    zero-padded to ``chunk`` rows, as JAX pads K/V to a multiple of the
+    chunk."""
+    part = t[:, c0:c0 + chunk].to(F32)
+    if part.shape[1] < chunk:
+        part = torch.nn.functional.pad(part,
+                                       (0, 0, 0, 0, 0, chunk - part.shape[1]))
+    return part
+
+
+def _flash_mask(s, q_pos, c0: int, chunk: int, causal: bool, window):
+    """``s [..., Sq, chunk]`` with the keys a causal (windowed) query at
+    ``q_pos`` may not see at ``MASKED``; a non-causal call masks
+    nothing."""
+    if not causal:
+        return s
+    k_pos = c0 + torch.arange(chunk, device=s.device)
+    mask = k_pos[None, :] <= q_pos[:, None]
+    if window is not None:
+        mask &= (q_pos[:, None] - k_pos[None, :]) < window
+    return torch.where(mask, s, MASKED)
+
+
+def _flash_forward(q, k, v, causal, window, chunk, with_lse=False):
+    """The online-softmax walk over KV chunks (JAX ``_flash_fwd_scan``).
+    Returns (out ``[B, Sq, Hq, dh]`` in q's dtype, the log-sum-exp ``[B,
+    Hkv, G, Sq]`` in fp32 or None)."""
     b, sq, hq, dh = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
@@ -124,19 +194,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
     l = torch.zeros_like(m)
     acc = torch.zeros((b, hkv, g, sq, dh), dtype=F32, device=q.device)
     for c0 in range(0, skv, chunk):
-        ks = k[:, c0:c0 + chunk].to(F32)
-        vs = v[:, c0:c0 + chunk].to(F32)
-        if ks.shape[1] < chunk:        # JAX pads KV to a multiple of chunk
-            pad = (0, 0, 0, 0, 0, chunk - ks.shape[1])
-            ks = torch.nn.functional.pad(ks, pad)
-            vs = torch.nn.functional.pad(vs, pad)
-        s = torch.einsum("bhgqd,bkhd->bhgqk", qf, ks)
-        if causal:
-            k_pos = c0 + torch.arange(chunk, device=q.device)
-            mask = k_pos[None, :] <= q_pos[:, None]
-            if window is not None:
-                mask &= (q_pos[:, None] - k_pos[None, :]) < window
-            s = torch.where(mask, s, MASKED)
+        ks, vs = _kv_chunk(k, c0, chunk), _kv_chunk(v, c0, chunk)
+        s = _flash_mask(torch.einsum("bhgqd,bkhd->bhgqk", qf, ks), q_pos, c0,
+                        chunk, causal, window)
         m_new = torch.maximum(m, s.amax(dim=-1))
         p = torch.exp(s - m_new[..., None])
         alpha = torch.exp(m - m_new)
@@ -145,7 +205,83 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
                                                     p, vs)
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)[..., None]
-    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, dh).to(q.dtype)
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, dh).to(q.dtype)
+    lse = m + torch.log(torch.clamp(l, min=1e-30)) if with_lse else None
+    return out, lse
+
+
+def _flash_backward(q, k, v, out, lse, dout, causal, window, chunk):
+    """JAX's ``_flash_backward``: per KV chunk the probabilities are
+    recomputed from ``lse`` (``p = exp(s - lse)``), ``delta = sum(dout *
+    out)`` and ``ds = p (dp - delta)``; nothing of one chunk outlives its
+    step but its rows of dK and dV. Returns (dq, dk, dv) in the inputs'
+    dtypes."""
+    b, sq, hq, dh = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    chunk = min(chunk, skv)
+    scale = dh ** -0.5
+    qf = _heads_first(q, hkv) * scale
+    dof = _heads_first(dout, hkv)
+    delta = (dof * _heads_first(out, hkv)).sum(-1)         # [B,Hkv,G,Sq]
+    q_pos = torch.arange(sq, device=q.device)
+    dq = torch.zeros_like(qf)
+    dks, dvs = [], []
+    for c0 in range(0, skv, chunk):
+        ks, vs = _kv_chunk(k, c0, chunk), _kv_chunk(v, c0, chunk)
+        s = _flash_mask(torch.einsum("bhgqd,bkhd->bhgqk", qf, ks), q_pos, c0,
+                        chunk, causal, window)
+        p = torch.exp(s - lse[..., None])                  # recomputed
+        dp = torch.einsum("bhgqd,bkhd->bhgqk", dof, vs)
+        ds = p * (dp - delta[..., None])
+        dq = dq + torch.einsum("bhgqk,bkhd->bhgqd", ds, ks)
+        dks.append(torch.einsum("bhgqk,bhgqd->bkhd", ds, qf))
+        dvs.append(torch.einsum("bhgqk,bhgqd->bkhd", p, dof))
+    dq = (dq * scale).permute(0, 3, 1, 2, 4).reshape(b, sq, hq, dh)
+    dk = torch.cat(dks, 1)[:, :skv]                       # the pad rows go
+    dv = torch.cat(dvs, 1)[:, :skv]
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """``flash_attention`` with JAX's recomputing backward (its
+    ``jax.custom_vjp``): the forward saves only ``(q, k, v, out, lse)``,
+    never a chunk's probabilities."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, chunk):
+        out, lse = _flash_forward(q, k, v, causal, window, chunk,
+                                  with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, window, chunk)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        return (*_flash_backward(q, k, v, out, lse, dout, *ctx.args),
+                None, None, None)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window=None,
+                    chunk: int = 512):
+    """Self-attention in fp32: causal, optionally over a sliding window of
+    ``window`` positions (query i sees keys i - window < j <= i), or with
+    ``causal=False`` over every key (the encoder's, and cross-attention).
+    q: ``[B, Sq, Hq, dh]``, k/v: ``[B, Skv, Hkv, dh]`` (GQA by head
+    grouping). KV is walked in ``chunk``-row steps with an online softmax,
+    as the JAX ``_flash_fwd_scan`` does, so the scores of one step (``[B,
+    Hkv, G, Sq, chunk]``) are the largest temporary. As in JAX, K/V are
+    zero-padded to a multiple of ``min(chunk, Skv)`` rows: a causal mask
+    hides the pad rows, a non-causal call masks nothing, so they take
+    softmax weight (score 0, value 0) there.
+
+    With grad mode on and an input that requires grad, the call goes
+    through ``_FlashAttention``, whose backward recomputes each chunk's
+    probabilities from the saved log-sum-exp (JAX's custom VJP)."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal, window, chunk)
+    return _flash_forward(q, k, v, causal, window, chunk)[0]
 
 
 def attention_block(p, x, cfg: ModelConfig, *, positions=None):

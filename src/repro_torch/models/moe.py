@@ -12,6 +12,9 @@ expert's capacity is dropped. Dispatch, combine and the expert products
 are plain einsums and batched matrix products, so every expert's weights
 are read at every step.
 
+Training runs the same block under the dense ``forward``: the router's
+top-k values carry the gradient, capacity drops as at serving.
+
 The router is computed in fp32 and its weight is kept in fp32 (JAX stores
 every parameter in fp32 and computes the router in fp32), so the choice
 of experts does not depend on the compute dtype; the expert weights are
@@ -24,6 +27,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
 F32 = torch.float32
@@ -152,8 +156,24 @@ def moe_block(p, x, cfg: ModelConfig):
 
 
 # --------------------------------------------------------------------------
-# serving: the dense skeleton with moe_block as the feed-forward sublayer
+# training and serving: the dense skeleton with moe_block as the
+# feed-forward sublayer
 # --------------------------------------------------------------------------
+
+def forward(params, cfg: ModelConfig, tokens):
+    """``transformer.forward`` with the routed experts (each layer
+    recomputed in the backward pass); ``B * S`` tokens that do not split
+    into dispatch groups raise (``check_tokens``)."""
+    check_tokens(tokens.numel())
+    return T.forward(params, cfg, tokens,
+                     ffn=lambda p, x: moe_block(p, x, cfg))
+
+
+def loss_fn(params, cfg: ModelConfig, batch):
+    """Next-token cross-entropy of ``forward``."""
+    logits = forward(params, cfg, batch["tokens"])
+    return L.ce_loss(logits, batch["labels"], cfg.vocab)
+
 
 def prefill(params, cfg: ModelConfig, tokens, *, length: int | None = None,
             cache_len: int | None = None):

@@ -1,7 +1,7 @@
 """RecurrentGemma (Griffin): RG-LRU recurrent blocks and local MQA
 attention in a 2:1 pattern [arXiv:2402.19427]. The port of the JAX
-``models/recurrentgemma.py`` for serving (``forward`` and ``loss_fn`` wait
-for the training slice).
+``models/recurrentgemma.py``: the training forward and loss, prefill and
+the decode step.
 
 Layer pattern: periods of (recurrent, recurrent, local attention); 26
 layers are 8 periods and 2 recurrent tail layers. Parameters are
@@ -23,6 +23,9 @@ residual adds plain additions, as in JAX, so the family launches no
 each attention layer's decode ``flash_decode`` (head_dim 256, 10 query
 heads on one KV head at full width). The prefill attention is the plain
 windowed ``layers.flash_attention``.
+
+Training (``forward``) runs each period under ``layers.remat`` (JAX
+checkpoints the period) and the tail blocks without it, as JAX does.
 
 The cache mixes a ring of the last ``window`` K/V rows a slot with the
 conv and RG-LRU states, which absorb every token: prefill runs at exact
@@ -216,6 +219,34 @@ def attn_layer(p, x, cfg: ModelConfig):
     x = x + attn_out
     normed = L.rms_norm(x, p["mlp_norm"], cfg.norm_eps)
     return x + L.mlp_block(p["mlp"], normed), kv
+
+
+# --------------------------------------------------------------------------
+# training forward
+# --------------------------------------------------------------------------
+
+def _period_fwd(pp, x, cfg: ModelConfig):
+    for p in pp["rec"]:
+        x, _ = rec_block(p, x, cfg)
+    return attn_layer(pp["attn"], x, cfg)[0]
+
+
+def forward(params, cfg: ModelConfig, tokens):
+    """Teacher-forced logits ``[B, S, V_pad]``: the periods recomputed in
+    the backward pass, then the tail blocks."""
+    x = L.embed_tokens(params["embed"], tokens).to(cfg.torch_dtype)
+    for pp in params["periods"]:
+        x = L.remat(_period_fwd, pp, x, cfg)
+    for p in params["tail"]:
+        x, _ = rec_block(p, x, cfg)
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return L.unembed(x, params["lm_head"])
+
+
+def loss_fn(params, cfg: ModelConfig, batch):
+    """Next-token cross-entropy of ``forward``."""
+    logits = forward(params, cfg, batch["tokens"])
+    return L.ce_loss(logits, batch["labels"], cfg.vocab)
 
 
 # --------------------------------------------------------------------------

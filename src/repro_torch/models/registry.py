@@ -18,14 +18,20 @@ the Griffin and xLSTM recurrent states ``[periods, stack, slots, ...]`` on
 axis 2.
 
 ``init_params`` is an entry point: it builds on ``cuda`` unless the
-caller passes ``device="cpu"``.
+caller passes ``device="cpu"``. Serving casts the weights to the compute
+dtype once, at load; training keeps fp32 masters
+(``init_master_params``) and ``loss_fn`` casts them at every use, as the
+JAX package does.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.data.pipeline import _batch_np
 from repro_torch.device import resolve_device
 from repro_torch.models import (moe, recurrentgemma, seamless, transformer,
                                 xlstm)
@@ -50,6 +56,27 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> dict:
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     return module_for(cfg).init(cfg, gen, dev)
+
+
+def init_master_params(cfg: ModelConfig, *, seed: int = 0,
+                       device=None) -> dict:
+    """``init_params``' draws with every leaf kept in fp32: the master
+    weights training updates."""
+    return init_params(dataclasses.replace(cfg, dtype="float32"), seed=seed,
+                       device=device)
+
+
+def loss_fn(params, cfg: ModelConfig, batch):
+    """The next-token cross-entropy of ``batch`` (``tokens``, ``labels``,
+    and ``frames`` for a frames frontend) under ``params``, computed in
+    ``cfg``'s dtype; see the family's ``forward``."""
+    return module_for(cfg).loss_fn(params, cfg, batch)
+
+
+def make_batch(cfg: ModelConfig, batch: int, seq: int, seed: int = 0):
+    """A synthetic batch as numpy arrays (tests and examples): the data
+    pipeline's batch of step 0 (``data.pipeline._batch_np``)."""
+    return _batch_np(cfg, batch, seq, seed, 0)
 
 
 def pad_prefill_ok(cfg: ModelConfig) -> bool:

@@ -1,6 +1,6 @@
 """SeamlessM4T-large-v2 backbone: an encoder-decoder transformer
-[arXiv:2308.11596]. The port of the JAX ``models/seamless.py`` for serving
-(``forward`` and ``loss_fn`` wait for the training slice).
+[arXiv:2308.11596]. The port of the JAX ``models/seamless.py``: the
+training forward and loss, prefill and the decode step.
 
 Only the transformer backbone is modelled, as in JAX: the audio frontend
 is a stub, and a prompt is ``[S_src, d_model]`` precomputed frame
@@ -18,6 +18,11 @@ launches ``silu_and_mul``, and each decoder layer's decode launches
 ``flash_decode`` twice, for self-attention over its ``pos + 1`` rows and
 for cross-attention. The encoder's attention is the plain
 ``layers.flash_attention`` (non-causal), as it is jnp in JAX.
+
+Training (``forward``) runs the encoder on ``batch["frames"]`` and the
+decoder (causal self-attention, cross-attention to the encoder output,
+the MLP) on the tokens, every encoder and decoder layer under
+``layers.remat``, as JAX checkpoints both scans.
 
 The cache holds two K/V pairs a decoder layer, ``k``/``v`` (generated
 tokens) and ``ck``/``cv`` (the encoder output's projections), all
@@ -90,22 +95,71 @@ def init(cfg: ModelConfig, gen: torch.Generator, device) -> dict:
 # encoder
 # --------------------------------------------------------------------------
 
-def encode(params, cfg: ModelConfig, frames):
-    """frames: ``[B, S_src, D]`` precomputed frame embeddings -> the
-    encoder output ``[B, S_src, D]`` in the compute dtype."""
-    x = frames.to(cfg.torch_dtype)
+def _enc_block(p, x, cos, sin, cfg: ModelConfig):
+    normed = L.rms_norm(x, p["attn_norm"], cfg.norm_eps)
+    q, k, v = L.qkv_proj(p["attn"], normed, cfg)
+    q, k = L.apply_rope(q, cos, sin), L.apply_rope(k, cos, sin)
+    o = L.flash_attention(q, k, v, causal=False)
+    x = x + L.out_proj(p["attn"], o, x.dtype)
+    normed = L.rms_norm(x, p["mlp_norm"], cfg.norm_eps)
+    return x + L.mlp_block(p["mlp"], normed)
+
+
+def _rope_table(x, cfg: ModelConfig):
     b, s, _ = x.shape
     pos = torch.arange(s, device=x.device).expand(b, s)
-    cos, sin = L.rope_angles(pos, cfg.head_dim, cfg.rope_theta)
+    return L.rope_angles(pos, cfg.head_dim, cfg.rope_theta)
+
+
+def encode(params, cfg: ModelConfig, frames):
+    """frames: ``[B, S_src, D]`` precomputed frame embeddings -> the
+    encoder output ``[B, S_src, D]`` in the compute dtype (each layer
+    recomputed in the backward pass when grad mode is on)."""
+    x = frames.to(cfg.torch_dtype)
+    cos, sin = _rope_table(x, cfg)
     for p in params["enc_layers"]:
-        normed = L.rms_norm(x, p["attn_norm"], cfg.norm_eps)
-        q, k, v = L.qkv_proj(p["attn"], normed, cfg)
-        q, k = L.apply_rope(q, cos, sin), L.apply_rope(k, cos, sin)
-        o = L.flash_attention(q, k, v, causal=False)
-        x = x + L.out_proj(p["attn"], o, x.dtype)
-        normed = L.rms_norm(x, p["mlp_norm"], cfg.norm_eps)
-        x = x + L.mlp_block(p["mlp"], normed)
+        x = L.remat(_enc_block, p, x, cos, sin, cfg)
     return L.rms_norm(x, params["enc_norm"], cfg.norm_eps)
+
+
+# --------------------------------------------------------------------------
+# training forward
+# --------------------------------------------------------------------------
+
+def _dec_block(p, x, enc, cos, sin, cfg: ModelConfig):
+    # causal self-attention
+    normed = L.rms_norm(x, p["attn_norm"], cfg.norm_eps)
+    q, k, v = L.qkv_proj(p["attn"], normed, cfg)
+    q, k = L.apply_rope(q, cos, sin), L.apply_rope(k, cos, sin)
+    o = L.flash_attention(q, k, v, causal=True)
+    x = x + L.out_proj(p["attn"], o, x.dtype)
+    # cross-attention to the encoder output
+    normed = L.rms_norm(x, p["cross_norm"], cfg.norm_eps)
+    qc, _, _ = L.qkv_proj(p["cross"], normed, cfg)
+    _, kc, vc = L.qkv_proj(p["cross"], enc.to(x.dtype), cfg)
+    oc = L.flash_attention(qc, kc, vc, causal=False)
+    x = x + L.out_proj(p["cross"], oc, x.dtype)
+    normed = L.rms_norm(x, p["mlp_norm"], cfg.norm_eps)
+    return x + L.mlp_block(p["mlp"], normed)
+
+
+def forward(params, cfg: ModelConfig, batch):
+    """Teacher-forced translation logits ``[B, S_tgt, V_pad]`` for
+    ``batch = {"frames": [B, S_src, D], "tokens": [B, S_tgt]}``."""
+    enc = encode(params, cfg, batch["frames"])
+    x = L.embed_tokens(params["embed"], batch["tokens"]).to(cfg.torch_dtype)
+    cos, sin = _rope_table(x, cfg)
+    for p in params["dec_layers"]:
+        x = L.remat(_dec_block, p, x, enc, cos, sin, cfg)
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return L.unembed(x, params["lm_head"])
+
+
+def loss_fn(params, cfg: ModelConfig, batch):
+    """Next-token cross-entropy of ``forward``; the labels are
+    ``batch["labels"]``."""
+    logits = forward(params, cfg, batch)
+    return L.ce_loss(logits, batch["labels"], cfg.vocab)
 
 
 # --------------------------------------------------------------------------

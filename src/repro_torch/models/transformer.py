@@ -1,8 +1,8 @@
-"""Dense decoder-only transformer (llama family): init, prefill, the
-suffix prefill of a radix prefix hit, and the decode step over either
-cache layout (the contiguous per-slot cache, a rolling ring for a
-sliding-window config, or the paged pool). The port of the JAX
-``models/transformer.py``.
+"""Dense decoder-only transformer (llama family): init, the training
+forward and loss, prefill, the suffix prefill of a radix prefix hit, and
+the decode step over either cache layout (the contiguous per-slot cache,
+a rolling ring for a sliding-window config, or the paged pool). The port
+of the JAX ``models/transformer.py``.
 
 Parameters are a plain dict. Where the JAX package stacks layer weights on
 a leading axis for ``lax.scan``, the port keeps a list with one dict per
@@ -10,6 +10,13 @@ layer and loops in Python. Matrix weights, embeddings and biases are
 stored in the compute dtype, cast once at load; the JAX package stores
 them in fp32 and casts at every use, which gives the same bits. Norm
 weights stay fp32, as the kernels read them in fp32.
+
+Training (``forward``, ``loss_fn``) takes fp32 master weights or the
+compute-dtype copies the train step casts from them, and casts at every
+use as JAX does; each layer runs under ``layers.remat`` (JAX's
+``jax.checkpoint`` with ``nothing_saveable``), so its activations are
+recomputed in the backward pass, kernel launches included; the final
+norm sits outside the recompute.
 
 The decode steps update the cache in place (JAX donates it to the same
 effect) and make no host round trip: positions, the page table and the
@@ -129,6 +136,39 @@ def init(cfg: ModelConfig, gen: torch.Generator, device) -> dict:
 def dense_ffn(p, x):
     """The dense layer's feed-forward sublayer: the SwiGLU MLP."""
     return L.mlp_block(p["mlp"], x)
+
+
+# --------------------------------------------------------------------------
+# training forward
+# --------------------------------------------------------------------------
+
+def _block_train(p, hidden, residual, cfg: ModelConfig, ffn):
+    normed, residual = L.add_rms_norm(hidden, residual, p["attn_norm"],
+                                      cfg.norm_eps)
+    attn_out, _ = L.attention_block(p["attn"], normed, cfg)
+    normed, residual = L.add_rms_norm(attn_out, residual, p["mlp_norm"],
+                                      cfg.norm_eps)
+    return ffn(p, normed), residual
+
+
+def forward(params, cfg: ModelConfig, tokens, *, ffn=dense_ffn):
+    """Teacher-forced logits ``[B, S, V_pad]`` in the compute dtype, each
+    layer recomputed in the backward pass. ``ffn`` as for ``prefill``."""
+    hidden = L.embed_tokens(params["embed"], tokens).to(cfg.torch_dtype)
+    residual = torch.zeros_like(hidden)
+    for p in params["layers"]:
+        hidden, residual = L.remat(_block_train, p, hidden, residual, cfg,
+                                   ffn)
+    normed, _ = L.add_rms_norm(hidden, residual, params["final_norm"],
+                               cfg.norm_eps)
+    return L.unembed(normed, params["lm_head"])
+
+
+def loss_fn(params, cfg: ModelConfig, batch):
+    """Next-token cross-entropy; ``batch = {"tokens", "labels": [B,
+    S]}``."""
+    logits = forward(params, cfg, batch["tokens"])
+    return L.ce_loss(logits, batch["labels"], cfg.vocab)
 
 
 # --------------------------------------------------------------------------

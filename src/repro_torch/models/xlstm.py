@@ -1,6 +1,6 @@
 """xLSTM (mLSTM and sLSTM blocks), xlstm-1.3b [arXiv:2405.04517]. The port
-of the JAX ``models/xlstm.py`` for serving (``forward`` and ``loss_fn``
-wait for the training slice).
+of the JAX ``models/xlstm.py``: the training forward and loss, prefill and
+the decode step.
 
 Periods of 8 blocks, 7 mLSTM and 1 sLSTM (the 1.3B model's xLSTM[7:1]):
 48 layers are 6 periods. Parameters are ``{"embed", "periods":
@@ -22,7 +22,12 @@ that form: inside each 64-token chunk (JAX's ``CHUNK``) every step at
 once, the state carried from chunk to chunk. JAX scans step by step; the
 fp32 sums run in another order, so the two agree to fp32 rounding. Decode
 is the O(1) step, which updates the cache leaves in place with no host
-read, so the serving engine captures it as one CUDA graph.
+read, so the serving engine captures it as one CUDA graph. Training
+(``forward``) runs every block through the chunkwise scans, at any length
+(the in-place decode step never sees a tensor that needs a gradient), and
+recomputes each chunk in the backward pass (``layers.remat``; JAX
+checkpoints each chunk of its scans), so the chunk-boundary states are
+what a block keeps.
 
 Which kernels run: none. The JAX blocks call the plain ``rms_norm``,
 ``silu`` and ``sigmoid`` (the JAX module docstring says the pre-norms use
@@ -244,9 +249,9 @@ def _mlstm_scan(state, q, k, v, log_i, log_f):
     hs = []
     for c0 in range(0, q.shape[2], CHUNK):
         part = slice(c0, c0 + CHUNK)
-        state, h = _mlstm_chunk(state, q[:, :, part], k[:, :, part],
-                                v[:, :, part], log_i[..., part],
-                                log_f[..., part])
+        state, h = L.remat(_mlstm_chunk, state, q[:, :, part],
+                           k[:, :, part], v[:, :, part], log_i[..., part],
+                           log_f[..., part])
         hs.append(h)
     return state, torch.cat(hs, 2).transpose(1, 2)
 
@@ -279,6 +284,14 @@ def _mlstm_decode(p, x, cfg: ModelConfig, state):
     return _mlstm_out(p, x, h[:, None], z)
 
 
+def _mlstm_seq(p, x, cfg: ModelConfig, state):
+    """The mLSTM block over ``x [B, S, D]`` by the chunkwise scan."""
+    normed = L.rms_norm(x, p["norm"], cfg.norm_eps)
+    q, k, v, log_i, log_f, z = _mlstm_qkvif(p, normed, cfg)
+    state, h = _mlstm_scan(state, q, k, v, log_i, log_f)
+    return _mlstm_out(p, x, h, z), state
+
+
 def mlstm_block(p, x, cfg: ModelConfig, state=None):
     """The mLSTM residual block over ``x [B, S, D]`` from ``state`` (C, n,
     m; None: empty). Returns (y, the new state); ``state`` is not
@@ -288,10 +301,7 @@ def mlstm_block(p, x, cfg: ModelConfig, state=None):
     if x.shape[1] == 1:
         state = tuple(t.clone() for t in state)
         return _mlstm_decode(p, x, cfg, state), state
-    normed = L.rms_norm(x, p["norm"], cfg.norm_eps)
-    q, k, v, log_i, log_f, z = _mlstm_qkvif(p, normed, cfg)
-    state, h = _mlstm_scan(state, q, k, v, log_i, log_f)
-    return _mlstm_out(p, x, h, z), state
+    return _mlstm_seq(p, x, cfg, state)
 
 
 # --------------------------------------------------------------------------
@@ -340,8 +350,8 @@ def _slstm_scan(state, z, i, f):
     hs = []
     for c0 in range(0, z.shape[2], CHUNK):
         part = slice(c0, c0 + CHUNK)
-        state, h = _slstm_chunk(state, z[..., part], i[..., part],
-                                log_f[..., part])
+        state, h = L.remat(_slstm_chunk, state, z[..., part],
+                           i[..., part], log_f[..., part])
         hs.append(h)
     return state, torch.cat(hs, 2).transpose(1, 2)
 
@@ -367,6 +377,13 @@ def _slstm_decode(p, x, cfg: ModelConfig, state):
     return _slstm_out(p, x, h[:, None], o)
 
 
+def _slstm_seq(p, x, cfg: ModelConfig, state):
+    """The sLSTM block over ``x [B, S, D]`` by the chunkwise scan."""
+    z, i, f, o = _slstm_gates(p, x, cfg)
+    state, h = _slstm_scan(state, z, i, f)
+    return _slstm_out(p, x, h, o), state
+
+
 def slstm_block(p, x, cfg: ModelConfig, state=None):
     """The sLSTM residual block over ``x [B, S, D]`` from ``state`` (c, n,
     m; None: empty). Returns (y, the new state); ``state`` is not
@@ -376,9 +393,31 @@ def slstm_block(p, x, cfg: ModelConfig, state=None):
     if x.shape[1] == 1:
         state = tuple(t.clone() for t in state)
         return _slstm_decode(p, x, cfg, state), state
-    z, i, f, o = _slstm_gates(p, x, cfg)
-    state, h = _slstm_scan(state, z, i, f)
-    return _slstm_out(p, x, h, o), state
+    return _slstm_seq(p, x, cfg, state)
+
+
+# --------------------------------------------------------------------------
+# training forward
+# --------------------------------------------------------------------------
+
+def forward(params, cfg: ModelConfig, tokens):
+    """Teacher-forced logits ``[B, S, V_pad]``: every block from the empty
+    state by the chunkwise scans, each chunk recomputed in the backward
+    pass."""
+    x = L.embed_tokens(params["embed"], tokens).to(cfg.torch_dtype)
+    b, dev = x.shape[0], x.device
+    for pp in params["periods"]:
+        for p in pp["mlstm"]:
+            x, _ = _mlstm_seq(p, x, cfg, mlstm_empty(cfg, b, dev))
+        x, _ = _slstm_seq(pp["slstm"], x, cfg, slstm_empty(cfg, b, dev))
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return L.unembed(x, params["lm_head"])
+
+
+def loss_fn(params, cfg: ModelConfig, batch):
+    """Next-token cross-entropy of ``forward``."""
+    logits = forward(params, cfg, batch["tokens"])
+    return L.ce_loss(logits, batch["labels"], cfg.vocab)
 
 
 # --------------------------------------------------------------------------

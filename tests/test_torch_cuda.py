@@ -1496,3 +1496,112 @@ def test_captured_hybrid_step_equals_the_eager_card_step(dev):
     got = {r.rid: list(r.out_tokens) for r in mixed.finished}
     assert mixed.stats()["decode_captures"] == 2
     assert all(got[rid] == card[rid] for rid in (0, 1, 2, 4))
+
+
+# ---------------------------------------------------------------------------
+# training: the kernels' autograd Functions and a train step on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,d", [(64, 896), (4096, 896)])
+def test_rmsnorm_function_gradient_matches_plain_autograd(dev, rows, d,
+                                                          dtype):
+    """The Function's forward launches the kernel (counted once), its y
+    and r' equal the plain version's, and its backward equals autograd
+    through the plain version, on the card."""
+    x, r, dy, dr = (_randn((rows, d), dtype, dev, s) for s in range(4))
+    w = _randn((d,), torch.float32, dev, 5) * 0.1 + 1.0
+    leaves = [t.requires_grad_() for t in (x, r, w)]
+    n0 = fused_add_rmsnorm.fused_add_rmsnorm.launches
+    y, r_new = ops.fused_add_rmsnorm(x, r, w, 1e-6)
+    got = torch.autograd.grad((y, r_new), leaves, (dy, dr))
+    torch.cuda.synchronize()
+    assert fused_add_rmsnorm.fused_add_rmsnorm.launches == n0 + 1
+    y_ref, r_ref = ref.fused_add_rmsnorm(x, r, w, 1e-6)
+    want = torch.autograd.grad((y_ref, r_ref), leaves, (dy, dr))
+    _close(y.detach(), y_ref.detach(), dtype)
+    _close(r_new.detach(), r_ref.detach(), dtype)
+    for g, w_ in zip(got, want):
+        _close(g, w_, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,d", [(64, 4864), (4096, 4864)])
+def test_silu_function_gradient_matches_plain_autograd(dev, rows, d, dtype):
+    x = _randn((rows, 2 * d), dtype, dev, 6, scale=3.0).requires_grad_()
+    dout = _randn((rows, d), dtype, dev, 7)
+    """The Function's output (the kernel's launch, counted once) equals
+    the plain version's, and its backward autograd through it."""
+    n0 = silu_and_mul.silu_and_mul.launches
+    out = ops.silu_and_mul(x)
+    got, = torch.autograd.grad(out, x, dout)
+    torch.cuda.synchronize()
+    assert silu_and_mul.silu_and_mul.launches == n0 + 1
+    out_ref = ref.silu_and_mul(x)
+    want, = torch.autograd.grad(out_ref, x, dout)
+    _close(out.detach(), out_ref.detach(), dtype)
+    _close(got, want, dtype)
+
+
+def test_a_train_step_on_the_card_matches_the_cpu(dev):
+    """Two fp32 steps of the reduced qwen2 (microbatches 2, AdamW at a rate
+    of 1e-3 from the first step, the kernels' Functions on the card)
+    against the same steps on the CPU: the loss and the norm of each step;
+    both moments after the two within 1e-4 of each leaf's largest; each
+    parameter's move in the first step within 1e-3 of the rate, leaving
+    out (at most 1%) the elements whose gradient the two sides round apart
+    by more than 2e-4 of its size, where Adam's first step turns a
+    rounding error into up to +-lr (ROADMAP C, reference behaviour 6). The
+    first step's gradient is its moment over 1 - b1; a later step's would
+    come from a difference of moments, whose own rounding blurs the rule."""
+    from repro_torch import configs
+    from repro_torch.models import registry as models
+    from repro_torch.training import tree
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_step import (TrainConfig, init_state,
+                                                 make_train_step)
+    lr = 1e-3
+    cfg = dataclasses.replace(configs.smoke("qwen2-0.5b"), dtype="float32")
+    tcfg = TrainConfig(microbatches=2, cast_params=None,
+                       adamw=AdamWConfig(lr=lr, warmup_steps=0))
+    batch = models.make_batch(cfg, 4, 64, seed=1)
+    p0 = tree.leaves(models.init_master_params(cfg, seed=0, device="cpu"))
+    out = {}
+    for where in ("cpu", dev):
+        params = models.init_master_params(cfg, seed=0, device="cpu")
+        params = tree.map_tree(lambda p: p.to(where), params)
+        state = init_state(cfg, tcfg, params)
+        step = make_train_step(cfg, tcfg)
+        b = {k: torch.from_numpy(v).to(where) for k, v in batch.items()}
+        n0 = ops.launch_counts()
+        metrics, first = [], None
+        for _ in range(2):
+            params, state, m = step(params, state, b)
+            metrics.append(m)
+            first = first or [[t.cpu().clone() for t in tree.leaves(x)]
+                              for x in (params, state["opt"].m)]
+        n1 = ops.launch_counts()
+        out[str(where)] = (state, metrics, first,
+                           {k: n1[k] - n0[k] for k in n1})
+    (s_cpu, m_cpu, (p1_cpu, g_cpu), _), (s_dev, m_dev, (p1_dev, g_dev), n) = \
+        out["cpu"], out["cuda"]
+    for a, b in zip(m_dev, m_cpu):
+        for k in ("loss", "grad_norm"):
+            _close(a[k], b[k], torch.float32)
+    for what in ("m", "v"):
+        for a, b in zip(tree.leaves(getattr(s_dev["opt"], what)),
+                        tree.leaves(getattr(s_cpu["opt"], what))):
+            torch.testing.assert_close(a.cpu(), b, rtol=0,
+                                       atol=1e-4 * float(b.abs().max()))
+    keep = [(a - b).abs() <= 2e-4 * torch.maximum(a.abs(), b.abs())
+            for a, b in zip(g_dev, g_cpu)]
+    left, total = (sum(int((~k).sum()) for k in keep),
+                   sum(k.numel() for k in keep))
+    assert left <= 0.01 * total, f"{left} of {total} left out"
+    for k, p, a, b in zip(keep, p0, p1_dev, p1_cpu):
+        torch.testing.assert_close((a - p)[k], (b - p)[k], rtol=0,
+                                   atol=1e-3 * lr)
+    # 2 steps x 2 microbatches x (4 L + 1) norms and 2 L silu, L = 2
+    assert n["fused_add_rmsnorm"] == 4 * 9 * (
+        2 if ops.get_variant("fused_add_rmsnorm").two_pass else 1)
+    assert n["silu_and_mul"] == 4 * 4
