@@ -201,6 +201,24 @@ Phases, each of which fails the run (non-zero exit) on any error:
    qwen2's training shapes, and an fp32 step of qwen2-0.5b cut to 2
    layers on the card against the same step on the CPU. The phase's
    wall time is printed.
+7. Reference and mesh: (a) the host-driven ``ReferenceEngine`` (eager
+   decode on the contiguous cache, one ``.item()`` a slot a step, exact
+   prefills) serves phase 4's qwen2-0.5b requests at full width: its
+   streams equal phase 4's under the bf16 rule, its launches are those
+   of its prefills and decode steps, and its tok_s is printed beside
+   phase 4's. (b) The tensor-parallel engine over a ``(1, 1)`` mesh of
+   one NCCL rank (``launch/mesh.py``; heads, MLP and vocab "sharded" over
+   one rank, so every hook runs its all-gather) serves phase 4e's
+   qwen3-8b requests at full width: one capture of the measured engine
+   with the collectives inside it (2 L + 1 all-gathers a captured pass),
+   ``readbacks == steps == graph_replays``, phase 4e's streams and
+   launch counts; the decode step is printed beside 4e's with the NCCL
+   version. (c) The paged decode and silu at qwen3-8b's per-rank shapes
+   for ``model`` 2 and 4 (16/4 and 8/2 heads of 128, silu over ``[8, 2 x
+   6,144]`` and ``[8, 2 x 3,072]``) against their plain versions at the
+   stated tolerances, each timed beside its bound. (d)
+   ``examples/torch/quickstart.py`` and ``examples/torch/serve_lm.py``
+   run on the card.
 
 ``--time-serve SRC ARCH`` runs no phase: it serves phase 4's fully
 subscribed workload of ARCH (qwen2-0.5b, h2o-danube-1.8b or
@@ -978,40 +996,49 @@ def phase_edges() -> bool:
     return ok
 
 
+def run_case(case) -> tuple:
+    """Hold one kernel_cases-form case against its plain version and time
+    it beside its bound; logs one line. Returns (ok, max abs error, ms,
+    plain ms, library ms or None, bound ms)."""
+    name, label, dtype, kern, plain, nbytes, nops, l2_cold, _, library \
+        = case
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    tols = DECODE_TOL if name in DECODE else TOL
+    if isinstance(got, tuple):
+        errs = [compare(g, w, tols) for g, w in zip(got, want)]
+        err = max(e[0] for e in errs), max(e[1] for e in errs), \
+            all(e[2] for e in errs)
+    else:
+        err = compare(got, want, tols)
+    timer = cold_ms if l2_cold else device_ms
+    ms, plain_ms = timer(kern), timer(plain)
+    lib_ms = timer(library) if library is not None else None
+    bound_ms = max(nbytes / HBM_BYTES_S, nops / PEAK_OPS_S[dtype]) * 1e3
+    tol = tols[dtype]
+    log(f"  {name:20s} {str(dtype)[6:]:8s} {label}: max_abs={err[0]:.3e}"
+        f" max_rel={err[1]:.3e} (tol rtol={tol['rtol']} "
+        f"atol={tol['atol']}) {'ok' if err[2] else 'MISMATCH'}; "
+        f"kernel {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, "
+        + (f"sdpa {lib_ms * 1e3:.2f} us, " if lib_ms is not None else "")
+        + f"bound {bound_ms * 1e3:.3f} us (bytes)"
+        f"{', L2 cold' if l2_cold else ''}")
+    return err[2], err[0], ms, plain_ms, lib_ms, bound_ms
+
+
 def phase_kernels(rows_out: dict) -> bool:
     ok = True
     decode_plans()
-    for name, label, dtype, kern, plain, nbytes, nops, l2_cold, main, \
-            library in kernel_cases():
-        got, want = kern(), plain()
-        torch.cuda.synchronize()
-        tols = DECODE_TOL if name in DECODE else TOL
-        if isinstance(got, tuple):
-            errs = [compare(g, w, tols) for g, w in zip(got, want)]
-            err = max(e[0] for e in errs), max(e[1] for e in errs), \
-                all(e[2] for e in errs)
-        else:
-            err = compare(got, want, tols)
-        timer = cold_ms if l2_cold else device_ms
-        ms, plain_ms = timer(kern), timer(plain)
-        lib_ms = timer(library) if library is not None else None
-        bound_ms = max(nbytes / HBM_BYTES_S, nops / PEAK_OPS_S[dtype]) * 1e3
-        tol = tols[dtype]
-        log(f"  {name:20s} {str(dtype)[6:]:8s} {label}: max_abs={err[0]:.3e}"
-            f" max_rel={err[1]:.3e} (tol rtol={tol['rtol']} "
-            f"atol={tol['atol']}) {'ok' if err[2] else 'MISMATCH'}; "
-            f"kernel {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, "
-            + (f"sdpa {lib_ms * 1e3:.2f} us, " if lib_ms is not None
-               else "")
-            + f"bound {bound_ms * 1e3:.3f} us (bytes)"
-            f"{', L2 cold' if l2_cold else ''}")
-        ok &= err[2]
+    for case in kernel_cases():
+        name, label, dtype, _, _, _, _, l2_cold, main, _ = case
+        good, max_abs, ms, plain_ms, lib_ms, bound_ms = run_case(case)
+        ok &= good
         if main and dtype == torch.bfloat16:
             src, replaces = SOURCES[name]
             rows_out[name] = {
                 "name": name, "route": "cuda", "source": src,
                 "replaces": replaces, "launches": None,
-                "max_abs_err": err[0], "ms": ms, "plain_ms": plain_ms,
+                "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_by": "bytes",
                 "library_ms": lib_ms, "shape": label,
                 "timing": ("single launch after a 64 MB read, median of "
@@ -1390,6 +1417,9 @@ def phase_resume() -> bool:
 
 
 _PARAMS: dict = {}
+# arch -> (streams, metrics) of its phase 4d-4f serve (phase 7b reads
+# qwen3-8b's)
+SERVED: dict = {}
 
 
 def serve_params(cfg, seed: int):
@@ -1580,7 +1610,8 @@ def phase_serve_bound(s: dict) -> tuple[bool, dict, dict]:
     Returns (ok, launch counts, the metrics)."""
     from repro_torch.models import registry
     cfg = serve_config(s)
-    ok, counts, _, m = phase_serve("reintegrated genomes", s)
+    ok, counts, streams, m = phase_serve("reintegrated genomes", s)
+    SERVED[cfg.name] = (streams, m)
     params = serve_params(cfg, s["seed"])
     emb = params["embed"]
     skip = ("embed", "enc_layers", "enc_norm")
@@ -2800,6 +2831,224 @@ def phase_train_grads() -> bool:
     return ok
 
 
+# phase 7: the host-driven reference engine, the tensor-parallel engine at
+# world 1, the per-rank kernel shapes of tensor parallelism, and two of the
+# examples
+
+
+def phase_reference_serve(streams: list,
+                          serve_m: dict) -> tuple[bool, dict]:
+    """7a: ``ReferenceEngine`` at full width on phase 4's qwen2-0.5b
+    requests (8 slots of the contiguous cache, exact prefills, eager decode
+    steps, one ``.item()`` a slot a step), its streams held to phase 4's
+    under the bf16 rule and its tok_s beside phase 4's. Returns (ok, its
+    launch counts)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import prompts_for
+    from repro_torch.serving import ReferenceEngine, Request
+    from repro_torch.serving.engine import WARMUP_STEPS
+
+    s = SERVE
+    cfg = serve_config(s)
+    params = serve_params(cfg, s["seed"])
+    prompts = prompts_for(cfg, s["requests"], s["min_prompt"],
+                          s["max_prompt"], s["seed"])
+    # a warm-up run (first uses of the prefill and decode shapes' GEMMs)
+    warm = ReferenceEngine(params, cfg, slots=s["slots"],
+                           max_seq=s["max_seq"])
+    for rid, p in enumerate(prompts[:2]):
+        warm.submit(Request(rid=rid, prompt=p, max_new_tokens=4))
+    warm.run()
+    del warm
+    eng = ReferenceEngine(params, cfg, slots=s["slots"],
+                          max_seq=s["max_seq"])
+    for rid, p in enumerate(prompts):
+        eng.submit(Request(rid=rid, prompt=p, max_new_tokens=s["max_new"]))
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    steps = 0
+    while eng.queue or any(sl.req is not None for sl in eng.slots):
+        steps += eng.step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    got = [r.out_tokens for r in sorted(eng.finished, key=lambda r: r.rid)]
+    tokens = sum(len(t) for t in got)
+    log(f"  ReferenceEngine qwen2-0.5b: {len(prompts)} requests, {steps} "
+        f"eager decode steps, {tokens} tokens in {wall:.3f} s: tok_s="
+        f"{tokens / wall:.1f} against phase 4's captured engine tok_s="
+        f"{serve_m['tok_s']:.1f} ({serve_m['steps']} steps)")
+    ok = len(got) == len(prompts) \
+        and all(len(t) == s["max_new"] for t in got)
+    ok &= bf16_rule("reference streams against phase 4's", cfg, params,
+                    prompts, streams, got)
+    ok &= check_launches({"launches": counts}, expected_launches(
+        cfg, {"steps": steps, "capture_warmups": WARMUP_STEPS,
+              "prefills": len(prompts), "suffix_prefills": 0,
+              "paged": False}))
+    return ok, counts
+
+
+def phase_mesh_serve(config_counts: dict) -> tuple[bool, dict]:
+    """7b: the tensor-parallel engine over a ``(1, 1)`` mesh of one NCCL
+    rank on phase 4e's qwen3-8b requests at full width: one capture of
+    the measured engine holding the all-gathers, phase 4e's streams and
+    launch counts, the decode step beside 4e's. Returns (ok, its launch
+    counts)."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import (free_port, init_world,
+                                         make_local_mesh)
+    from repro_torch.launch.serve import measure, prompts_for
+
+    s = SERVE_QWEN3
+    cfg = serve_config(s)
+    params = serve_params(cfg, s["seed"])
+    prompts = prompts_for(cfg, s["requests"], s["min_prompt"],
+                          s["max_prompt"], s["seed"])
+    want_streams, m4e = SERVED[cfg.name]
+    init_world("cuda", rank=0, world_size=1, port=free_port())
+    log(f"  NCCL {'.'.join(map(str, torch.cuda.nccl.version()))}, backend "
+        f"{dist.get_backend()}, world {dist.get_world_size()}")
+    captured = []
+    real = dist.all_gather_into_tensor
+
+    def counted(*args, **kwargs):
+        captured.append(torch.cuda.is_current_stream_capturing())
+        return real(*args, **kwargs)
+    try:
+        dist.all_gather_into_tensor = counted
+        mesh = make_local_mesh(1, "cuda")
+        m, outs = measure(params, cfg, prompts, max_new=s["max_new"],
+                          slots=s["slots"], max_seq=s["max_seq"],
+                          page_size=s["page_size"], device="cuda",
+                          mesh=mesh)
+    finally:
+        dist.all_gather_into_tensor = real
+        dist.destroy_process_group()
+    got = [o.tokens for o in outs]
+    # the warm-up engine captures twice (argmax, then the draw of its
+    # sampled request), the measured engine once; each capture records
+    # one pass: heads and MLP a layer, the vocab once
+    want_captured = 3 * (2 * cfg.n_layers + 1)
+    log(f"  mesh {m['mesh']}: all-gathers {len(captured)}, "
+        f"{sum(captured)} inside captures (expected {want_captured})")
+    ok = sum(captured) == want_captured
+    ok &= check_run(m)
+    ok &= m["decode_captures"] == 1 and m["all_done"]
+    ok &= same("mesh streams against phase 4e's", want_streams, got)
+    single = config_counts["serve_qwen3"]
+    for name, n in m["launches"].items():
+        good = n == single[name]
+        ok &= good
+        log(f"  launches {name}: {n} (phase 4e {single[name]}) "
+            f"{'ok' if good else 'WRONG'}")
+    log(f"  qwen3-8b decode step on the (1, 1) mesh "
+        f"{1e3 * m['decode_step_s']:.3f} ms against phase 4e's single-rank "
+        f"{1e3 * m4e['decode_step_s']:.3f} ms; tok_s={m['tok_s']:.1f} "
+        f"(4e {m4e['tok_s']:.1f}); mean_ttft_s={m['ttft_s']:.4f} (4e "
+        f"{m4e['ttft_s']:.4f}); capture_s={m['capture_s']:.3f}; "
+        f"peak_mem_GiB={m['peak_mem_gib']:.2f}")
+    return ok, m["launches"]
+
+
+def shard_cases(dtype):
+    """qwen3-8b's per-rank decode shapes under tensor parallelism, in
+    kernel_cases' form: at ``model`` 2 and 4 the paged decode at 16/4 and
+    8/2 heads of 128 (8 slots of 512 rows, 16-row pages, ragged lengths)
+    and silu over ``[8, 2 x 6,144]`` and ``[8, 2 x 3,072]`` (the installed
+    genomes); rmsnorm keeps its width."""
+    from repro_torch import configs
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import ops, ref
+    cfg = configs.get(SERVE_QWEN3["arch"])
+    es = torch.tensor([], dtype=dtype).element_size()
+    b, page = SERVE_QWEN3["slots"], SERVE_QWEN3["page_size"]
+    n_pt = SERVE_QWEN3["max_seq"] // page
+    pg = ops.get_variant("paged_flash_decode")
+    cases = []
+    for model in (2, 4):
+        hq, hkv, dh = (cfg.n_heads // model, cfg.n_kv_heads // model,
+                       cfg.head_dim)
+        q, k, v, table, lens = paged_inputs(b, hq, hkv, dh, page, n_pt,
+                                            dtype, seed=hq + model)
+        rows = int(lens.sum())
+        n_tab = int(sum(-(-int(n) // page) for n in lens))
+        cases.append((
+            "paged_flash_decode", f"qwen3-8b model={model} b={b} hq/hkv="
+            f"{hq}/{hkv} d={dh} page={page} kv_len={lens.tolist()} "
+            f"{pg.describe()}", dtype,
+            lambda q=q, k=k, v=v, t=table, n=lens:
+                fd.paged_flash_decode_attention(q, k, v, t, kv_len=n,
+                                                variant=pg),
+            lambda q=q, k=k, v=v, t=table, n=lens:
+                fd.paged_plain(pg, q, k, v, t, n, q.shape[-1] ** -0.5),
+            2 * b * hq * dh * es + 2 * rows * hkv * dh * es + 4 * n_tab
+            + 4 * b, 4 * rows * hq * dh, False, False, None))
+        d = cfg.d_ff // model
+        x = randn((b, 2 * d), dtype, 4 + model, scale=3.0)
+        cases.append((
+            "silu_and_mul", f"qwen3-8b model={model} rows={b} d={d} "
+            f"{ops.get_variant('silu_and_mul').describe()}", dtype,
+            lambda x=x: ops.silu_and_mul(x),
+            lambda x=x: ref.silu_and_mul(x),
+            3 * b * d * es, 6 * b * d, False, False, None))
+    return cases
+
+
+def phase_shard_kernels() -> bool:
+    """7c: ``shard_cases`` in bf16 and fp32, each against its plain
+    version and timed beside its bound."""
+    ok = True
+    for dtype in (torch.bfloat16, torch.float32):
+        for case in shard_cases(dtype):
+            ok &= run_case(case)[0]
+    return ok
+
+
+def phase_examples() -> bool:
+    """7d: ``examples/torch/quickstart.py`` (the agent loop on silu,
+    reintegrated, one call of the tuned kernel) and
+    ``examples/torch/serve_lm.py`` (three serves of qwen2-0.5b at full
+    width) on the card, each in its own process (the kernel library is
+    phase 1's build)."""
+    import subprocess
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    ok = True
+    for name, want in (("quickstart", "installed: silu_and_mul@"),
+                       ("serve_lm", None)):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, os.path.join(ROOT, "examples", "torch",
+                                          f"{name}.py")],
+            cwd=ROOT, env=env, capture_output=True, text=True, timeout=420)
+        out = proc.stdout.splitlines()
+        good = proc.returncode == 0
+        if name == "serve_lm":
+            runs = [json.loads(line) for line in out
+                    if line.startswith("{")]
+            good &= len(runs) == 3 and all(
+                r["all_done"] and r["device"].startswith("cuda")
+                and r["steps"] == r["readbacks"] == r["graph_replays"]
+                for r in runs)
+            for r in runs:
+                log(f"  serve_lm: {r['requests']} requests tok_s="
+                    f"{r['tok_s']:.1f} steps={r['steps']} graph_replays="
+                    f"{r['graph_replays']} preemptions={r['preemptions']} "
+                    f"sampling_step={r['sampling_step']}")
+        else:
+            good &= any(want in line for line in out)
+            for line in out[-3:]:
+                log(f"  {name}: {line}")
+        log(f"  examples/torch/{name}.py exit {proc.returncode} in "
+            f"{time.perf_counter() - t0:.1f} s "
+            f"{'ok' if good else 'FAILED'}")
+        if not good:
+            log("\n".join(out[-20:]) + "\n" + proc.stderr[-4000:])
+        ok &= good
+    return ok
+
+
 def ptxas_kernels(text: str) -> list:
     """(kernel with its template arguments, registers, spill-store bytes)
     of each kernel in ptxas' report (``-Xptxas -v``), in its order."""
@@ -2976,6 +3225,20 @@ def main() -> int:
     ok["train gradients"] = phase_train_grads()
     phase_s["train"] = time.perf_counter() - t0
     log(f"  phase 6 {phase_s['train']:.1f} s")
+    t0 = time.perf_counter()
+    log("phase 7: the reference engine, the tensor-parallel engine on a "
+        "(1, 1) NCCL mesh, the per-rank kernel shapes, two examples")
+    free_models()
+    ok["reference engine"], ref_counts = phase_reference_serve(streams,
+                                                               serve_m)
+    free_models()
+    ok["mesh"], mesh_counts = phase_mesh_serve(config_counts)
+    free_models()
+    ok["shard kernels"] = phase_shard_kernels()
+    ok["examples"] = phase_examples()
+    counts7 = {"reference_qwen2": ref_counts, "mesh_qwen3": mesh_counts}
+    phase_s["reference and mesh"] = time.perf_counter() - t0
+    log(f"  phase 7 {phase_s['reference and mesh']:.1f} s")
     log("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                       for k, v in phase_s.items()))
     log(f"total {time.perf_counter() - t_start:.1f} s")
@@ -2992,7 +3255,9 @@ def main() -> int:
                                    **{path: c[name] for path, c
                                       in config_counts.items()},
                                    **{path: c[name] for path, c
-                                      in train_counts.items()}}
+                                      in train_counts.items()},
+                                   **{path: c[name] for path, c
+                                      in counts7.items()}}
         # the main path: every run but the shipped-genome serve
         row["launches"] = sum(n for path, n in row["launches_by_path"]
                               .items() if path != "serve_shipped")

@@ -72,6 +72,17 @@ half-depth sibling of the served model, drawn from ``--seed + 1``):
     PYTHONPATH=src python -m repro_torch.launch.serve --spec ngram \
         --spec-k 4
 
+``--tp M`` serves tensor-parallel (``sharding/tp.py``, dense family on
+the paged pool): the world of N ranks becomes an ``(N / M, M)``
+``(data, model)`` mesh and every rank runs the same engine on its shard.
+The world is ``torchrun``'s (NCCL, one card a rank), or ``--nproc N``
+gloo ranks spawned here on the CPU; rank 0 prints, with a ``mesh:`` line
+before the JSON:
+    PYTHONPATH=src torchrun --nproc-per-node 1 -m \
+        repro_torch.launch.serve --arch qwen3-8b --tp 1
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke \
+        --device cpu --tp 2 --nproc 4
+
 It prints one JSON line of serving metrics (tok/s, mean TTFT, the mean
 wall time of a decode step, steps, readbacks, kernel launches,
 preemptions and pages swapped, the decode step's captures and graph
@@ -103,6 +114,8 @@ import torch
 from repro_torch import configs
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
+from repro_torch.launch.mesh import (free_port, init_world, make_local_mesh,
+                                     under_torchrun)
 from repro_torch.models import registry
 from repro_torch.reliability import Fault
 from repro_torch.serving import LLMEngine, SamplingParams, SpecConfig
@@ -252,7 +265,7 @@ def measure(params, cfg, prompts, *, max_new: int, slots: int,
             preemption: str = "swap", paged=None, prefix_cache: bool = True,
             scheduler: str = "fcfs", sampling=None, priorities=None,
             chaos=None, spec=None, deadlines=None, check_steps=False,
-            profile_rows: int = 0) -> tuple[dict, list]:
+            profile_rows: int = 0, mesh=None) -> tuple[dict, list]:
     """Warm up on an engine of its own, then serve ``prompts`` once on a
     fresh engine (on the card its decode step is captured when it is
     built), with every kernel's launch count set to 0 just before.
@@ -260,7 +273,9 @@ def measure(params, cfg, prompts, *, max_new: int, slots: int,
     greedy); ``priorities`` one int per prompt; ``deadlines`` seconds (one
     for all or one per prompt); ``spec`` a ``SpecConfig`` (both engines);
     ``chaos`` a ``Fault`` list injected into the measured serve only.
-    ``check_steps`` runs the pool check after every step of it. Returns
+    ``check_steps`` runs the pool check after every step of it. ``mesh``
+    (a ``(data, model)`` ``DeviceMesh``) serves both engines
+    tensor-parallel, every rank of the mesh calling this alike. Returns
     (metrics, the ``RequestOutput`` list). The pool check runs at the end
     with the tree's pages, then ``pool_released`` says whether every page
     in use was the tree's and clearing the tree emptied the pool.
@@ -270,7 +285,8 @@ def measure(params, cfg, prompts, *, max_new: int, slots: int,
     cuda = dev.type == "cuda"
     kw = dict(slots=slots, max_seq=max_seq, page_size=page_size, device=dev,
               num_pages=num_pages, preemption=preemption, paged=paged,
-              prefix_cache=prefix_cache, scheduler=scheduler, spec=spec)
+              prefix_cache=prefix_cache, scheduler=scheduler, spec=spec,
+              mesh=mesh)
     LLMEngine(params, cfg, **kw).generate(
         *warm_up_prompts(cfg, page_size), max_new_tokens=4)
     llm = LLMEngine(params, cfg, chaos=list(chaos) if chaos else None, **kw)
@@ -331,6 +347,8 @@ def measure(params, cfg, prompts, *, max_new: int, slots: int,
            "hits": [o.prefix_hit_tokens for o in outs],
            "launches": ops.launch_counts(),
            "all_done": all(o.finish_reason == "done" for o in outs)}
+    if mesh is not None:
+        out["mesh"] = st["mesh"]
     for key in ("prefix_cache", "prefix_hit_tokens", "prefix_query_tokens",
                 "cow_copies", "tree_evictions", "tree_pages") + LIFECYCLE:
         out[key] = st.get(key, 0)
@@ -397,6 +415,8 @@ def run(args) -> dict:
                         top_p=args.top_p, seed=args.sampling_seed)
     spec = make_spec(args.spec, args.spec_k, cfg, args.seed, dev) \
         if args.spec else None
+    tp = getattr(args, "tp", None)
+    mesh = make_local_mesh(tp, dev) if tp else None
     out, _ = measure(params, cfg, prompts, max_new=args.max_new,
                      slots=args.slots, max_seq=max_seq,
                      page_size=args.page_size, device=dev,
@@ -406,8 +426,39 @@ def run(args) -> dict:
                      priorities=[rid % 3 for rid in range(len(prompts))],
                      chaos=parse_chaos(args.chaos) if args.chaos else None,
                      spec=spec, deadlines=args.deadline,
-                     profile_rows=args.rows if args.profile else 0)
+                     profile_rows=args.rows if args.profile else 0,
+                     mesh=mesh)
     return out
+
+
+def mesh_line(out: dict) -> str:
+    """The JAX serve command's line for a sharded run: the mesh, what
+    shards, and the readbacks of the measured serve."""
+    m = out["mesh"]
+    sharded = [k for k in ("heads_tp", "mlp_tp", "vocab_tp", "batch_dp")
+               if m[k]] or ["replicated"]
+    return (f"mesh: data={m['data']} x model={m['model']} "
+            f"({', '.join(sharded)}), {out['readbacks']} readbacks in "
+            f"{out['steps']} steps")
+
+
+def run_rank(rank: int | None, args, port: int | None) -> None:
+    """One rank of a ``--tp`` serve: join the world (``torchrun``'s, or
+    rank ``rank`` of ``--nproc`` on ``port``, or a world of one when
+    ``rank`` is None), serve, and print on rank 0: the mesh line, then the
+    JSON line."""
+    import torch.distributed as dist
+    if rank is not None:
+        torch.set_num_threads(1)    # N ranks share this host's cores
+    init_world(args.device, rank=rank or 0, world_size=args.nproc or 1,
+               port=port)
+    try:
+        out = run(args)
+        if dist.get_rank() == 0:
+            print(mesh_line(out))
+            print(json.dumps(out), flush=True)
+    finally:
+        dist.destroy_process_group()
 
 
 def main(argv=None) -> None:
@@ -462,11 +513,27 @@ def main(argv=None) -> None:
                     help="speculative decoding's drafter (greedy only)")
     ap.add_argument("--spec-k", type=int, default=4,
                     help="drafts a step (the verify scores k + 1)")
+    ap.add_argument("--tp", type=int, default=None, metavar="M",
+                    help="model-parallel size: serve sharded over the "
+                    "world as a (N/M, M) (data, model) mesh")
+    ap.add_argument("--nproc", type=int, default=None, metavar="N",
+                    help="with --tp outside torchrun: spawn N gloo ranks "
+                    "here (--device cpu)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--rows", type=int, default=25,
                     help="operators per profile table")
-    print(json.dumps(run(ap.parse_args(argv))))
+    args = ap.parse_args(argv)
+    if args.tp is None:
+        print(json.dumps(run(args)))
+    elif under_torchrun() or not args.nproc:
+        run_rank(None, args, None if under_torchrun() else free_port())
+    else:
+        if resolve_device(args.device).type != "cpu":
+            raise ValueError("--nproc spawns gloo ranks: pass --device cpu "
+                             "(on the card the world is torchrun's)")
+        torch.multiprocessing.spawn(run_rank, args=(args, free_port()),
+                                    nprocs=args.nproc)
 
 
 if __name__ == "__main__":

@@ -25,6 +25,7 @@ import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.sharding import tp
 
 F32 = torch.float32
 MASKED = -1e30        # finite -inf of the JAX flash attention
@@ -102,8 +103,10 @@ def embed_tokens(embedding, tokens):
 
 
 def unembed(x, lm_head):
-    """Logits over the padded vocab: ``[..., D] @ [D, V_pad]``."""
-    return x @ lm_head.to(x.dtype)
+    """Logits over the padded vocab: ``[..., D] @ [D, V_pad]``. Under an
+    active tensor-parallel plan that shards the vocab, the local product
+    covers a contiguous vocab slice, all-gathered back to full order."""
+    return tp.gather_vocab(x @ lm_head.to(x.dtype))
 
 
 def ce_loss(logits, labels, vocab: int):
@@ -144,7 +147,11 @@ def qkv_proj(p, x, cfg: ModelConfig):
 
 
 def out_proj(p, o, dtype):
-    """o: ``[B, S, Hq, dh]`` -> ``[B, S, D]`` through ``wo [Hq, dh, D]``."""
+    """o: ``[B, S, Hq, dh]`` -> ``[B, S, D]`` through ``wo [Hq, dh, D]``.
+    Under an active tensor-parallel plan that shards heads, ``o`` holds
+    this rank's heads; they are all-gathered (concatenated, no partial
+    sums) before the replicated ``wo`` product."""
+    o = tp.gather_heads(o)
     h, dh, d = p["wo"].shape
     return o.flatten(-2) @ p["wo"].reshape(h * dh, d).to(dtype)
 
@@ -345,7 +352,11 @@ def update_cache(cache_k, cache_v, k_new, v_new, pos) -> None:
 
 def mlp_block(p, x):
     """SwiGLU: fused gate/up product -> silu_and_mul kernel -> down
-    product."""
+    product. Under an active tensor-parallel plan that shards the MLP,
+    ``w_gateup`` holds this rank's permuted gate/up columns
+    (``sharding.tp.gateup_permutation``), and the local ``silu_and_mul``
+    outputs are all-gathered before the replicated down product."""
     h = x @ p["w_gateup"].to(x.dtype)
     h = ops.silu_and_mul(h)
+    h = tp.gather_mlp(h)
     return h @ p["w_down"].to(x.dtype)

@@ -32,6 +32,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.sharding import tp
 
 # Right-padding a prompt to a bucketed length is exact: the cache is
 # positional K/V and attention is causal, so pad positions never reach
@@ -357,21 +358,32 @@ def decode_step_paged(params, cfg: ModelConfig, pool, page_table, token,
     speculative verify rejects draft positions through it, and the
     logits are unchanged (the caller drops a masked row's). Returns
     (logits ``[B, V_pad]``, pool).
+
+    Under an active tensor-parallel plan (``sharding.tp``) that shards the
+    slot batch over ``data``, each data shard embeds, attends and
+    returns the logits of its own rows only, but the pool is whole on
+    every data shard (radix-shared pages and swap-out reads need every
+    row), so the new K/V rows are all-gathered across ``data`` before the
+    pool write: the full table gives the write indices, this shard's rows
+    of it the attention's pages. With no plan every ``tp`` call is the
+    identity.
     """
     b = token.shape[0]
     page = pool["k"].shape[2]
     n_pt = page_table.shape[1]
-    hidden = L.embed_tokens(params["embed"], token[:, None]) \
-        .to(cfg.torch_dtype)                                    # [B,1,D]
     pidx = torch.clamp(pos // page, 0, n_pt - 1).long()
     phys = page_table[torch.arange(b, device=token.device), pidx].long()
     if write_mask is not None:
         # rejected speculative positions write to the trap page
         phys = torch.where(write_mask, phys, torch.zeros_like(phys))
     off = (pos % page).long()
-    cos, sin = L.rope_angles(pos[:, None], cfg.head_dim, cfg.rope_theta)
+    token_q, pos_q = tp.data_shard(token), tp.data_shard(pos)
+    table_q = tp.data_shard(page_table)
+    hidden = L.embed_tokens(params["embed"], token_q[:, None]) \
+        .to(cfg.torch_dtype)                                    # [B,1,D]
+    cos, sin = L.rope_angles(pos_q[:, None], cfg.head_dim, cfg.rope_theta)
     residual = torch.zeros_like(hidden)
-    kv_len = (pos + 1).to(torch.int32)
+    kv_len = (pos_q + 1).to(torch.int32)
     for li, p in enumerate(params["layers"]):
         k_l, v_l = pool["k"][li], pool["v"][li]
         normed, residual = L.add_rms_norm(hidden, residual, p["attn_norm"],
@@ -379,10 +391,10 @@ def decode_step_paged(params, cfg: ModelConfig, pool, page_table, token,
         q, k_new, v_new = L.qkv_proj(p["attn"], normed, cfg)
         q = L.apply_rope(q, cos, sin)
         k_new = L.apply_rope(k_new, cos, sin)
-        k_l[phys, off] = k_new[:, 0].to(k_l.dtype)
-        v_l[phys, off] = v_new[:, 0].to(v_l.dtype)
+        k_l[phys, off] = tp.gather_data(k_new[:, 0]).to(k_l.dtype)
+        v_l[phys, off] = tp.gather_data(v_new[:, 0]).to(v_l.dtype)
         o = ops.paged_flash_decode_attention(q[:, 0].contiguous(), k_l, v_l,
-                                             page_table, kv_len=kv_len)
+                                             table_q, kv_len=kv_len)
         attn_out = L.out_proj(p["attn"], o[:, None], o.dtype)
         normed, residual = L.add_rms_norm(attn_out, residual, p["mlp_norm"],
                                           cfg.norm_eps)

@@ -24,6 +24,8 @@
 * ``SpecConfig`` / ``NGramDrafter`` / ``DraftModelDrafter``
   (``serving/spec/``): speculative decoding inside the captured step,
   greedy streams equal to target-only decoding's.
+* ``ReferenceEngine`` (``serving/reference.py``): the host-driven greedy
+  loop the engine's streams are held against.
 """
 
 from repro_torch.serving.api import LLMEngine, RequestOutput, TokenEvent
@@ -34,6 +36,7 @@ from repro_torch.serving.chaos import ChaosInjector, InjectedDeviceFault
 from repro_torch.serving.engine import Engine, Request
 from repro_torch.serving.paging import PagePool
 from repro_torch.serving.radix import RadixCache
+from repro_torch.serving.reference import ReferenceEngine
 from repro_torch.serving.sampling import SamplingParams, sample_tokens
 from repro_torch.serving.scheduler import (FCFSScheduler, PreemptionPolicy,
                                            PriorityScheduler,
@@ -47,7 +50,8 @@ __all__ = ["CacheConfig", "ChaosInjector", "ContiguousCacheManager",
            "DraftModelDrafter", "Drafter", "Engine", "FCFSScheduler",
            "InjectedDeviceFault", "LLMEngine", "NGramDrafter", "PagePool",
            "PagedCacheManager", "PreemptionPolicy", "PriorityScheduler",
-           "RadixCache", "RecomputePreemption", "Request", "RequestOutput",
+           "RadixCache", "RecomputePreemption", "ReferenceEngine",
+           "Request", "RequestOutput",
            "SJFScheduler", "SamplingParams", "Scheduler", "SpecConfig",
            "SwapPreemption", "TokenEvent", "make_preemption",
            "make_scheduler", "sample_tokens"]

@@ -90,19 +90,21 @@ class LLMEngine:
     given none (greedy when None); ``chaos`` a ``ChaosInjector`` (or a
     ``Fault`` list) that injects faults at chosen steps; ``spec`` a
     ``SpecConfig`` for speculative decoding (greedy requests only; the
-    streams equal target-only decoding's, in fewer steps)."""
+    streams equal target-only decoding's, in fewer steps); ``mesh`` a
+    ``(data, model)`` ``DeviceMesh`` for tensor-parallel serving (every
+    rank builds the same facade; see ``Engine``)."""
 
     def __init__(self, params, cfg: ModelConfig, *, slots: int = 4,
                  max_seq: int = 512, scheduler="fcfs", preemption="swap",
                  paged: Optional[bool] = None, page_size: int = 16,
                  num_pages: Optional[int] = None, prefix_cache: bool = True,
                  sampling: Optional[SamplingParams] = None, chaos=None,
-                 spec=None, device=None):
+                 spec=None, mesh=None, device=None):
         self.cfg = cfg
         self.engine = Engine(
             params, cfg, slots=slots, max_seq=max_seq, sampling=sampling,
             scheduler=scheduler, preemption=preemption, chaos=chaos,
-            spec=spec, device=device,
+            spec=spec, mesh=mesh, device=device,
             cache_manager=CacheConfig(paged=paged, page_size=page_size,
                                       num_pages=num_pages,
                                       prefix_cache=prefix_cache))

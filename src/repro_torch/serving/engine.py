@@ -132,6 +132,19 @@ the row. It emits ``[k + 1, slots]`` tokens and the done flags, applied
 at once each step (one readback a step), and only greedy requests are
 admitted. The n-gram drafter is host work; the draft model's passes run
 the contiguous ``flash_decode`` kernel on its own cache.
+
+**Tensor parallelism** (``mesh=``, a ``(data, model)`` ``DeviceMesh``;
+the dense family on the paged pool). SPMD: every rank builds the same
+engine and runs the same host loop, keeping its shard of the weights and
+its KV heads of the pool (``sharding.tp``). The decode step (argmax,
+draw or spec verify), the prefill and the suffix prefill run under the
+plan, whose hooks all-gather the sharded partials (on the card inside
+the captured graph); a data shard decodes and draws its own slot rows
+and the tokens are gathered back, so every rank holds the same carry and
+reads back the same emit (one readback a step a rank). The swap copies
+and the copy-on-write page copy are rank-local (each rank's pool holds
+its own heads) and need no hook; a draft model runs replicated, outside
+the plan.
 """
 
 from __future__ import annotations
@@ -153,6 +166,7 @@ from repro_torch.serving.chaos import ChaosInjector
 from repro_torch.serving.sampling import SamplingParams, sample_tokens
 from repro_torch.serving.scheduler import make_preemption, make_scheduler
 from repro_torch.serving.spec import make_drafter
+from repro_torch.sharding import tp
 
 I32 = torch.int32
 F32 = torch.float32
@@ -204,7 +218,7 @@ class Engine:
                  max_seq: int = 512,
                  sampling: Optional[SamplingParams] = None, scheduler=None,
                  preemption=None, cache_manager=None, chaos=None, spec=None,
-                 device=None):
+                 mesh=None, device=None):
         """``params`` in the port's layout (``registry.init_params`` or
         ``convert.params_from_jax``) are moved to ``device`` (default
         ``cuda``). ``sampling`` is the ``SamplingParams`` of requests that
@@ -215,8 +229,13 @@ class Engine:
         ``cache_manager`` a ``CacheConfig`` or a ready manager; ``chaos`` a
         ``ChaosInjector`` or a list of ``reliability.Fault``; ``spec`` a
         ``SpecConfig`` (speculative decoding on the paged pool; inert on
-        the contiguous cache). On the card the decode step is captured
-        here, before any admission."""
+        the contiguous cache); ``mesh`` a ``(data, model)`` ``DeviceMesh``
+        (``launch/mesh.py``), for tensor-parallel serving of the dense
+        family from the paged pool: every rank of the mesh builds the
+        same engine, keeps its shard of the weights and of the pool
+        (``sharding.tp``), and runs its programs under the plan, whose
+        hooks all-gather the sharded partials. On the card the decode
+        step is captured here, before any admission."""
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = registry.module_for(cfg).cast_params(params, cfg,
@@ -230,7 +249,17 @@ class Engine:
         self.preempt_mode = self.preemption.mode
         self.cm = make_cache_manager(cache_manager, cfg, slots, max_seq,
                                      self.device)
+        self._plan = None
         self.cache = self.cm.init()
+        if mesh is not None:
+            if not self.cm.paged:
+                raise ValueError(
+                    "mesh serving requires the paged cache manager")
+            self._plan = tp.make_plan(cfg, mesh, slots)
+            # this rank's weights (gate/up columns permuted per shard when
+            # the MLP axis shards) and KV heads
+            self.params = tp.shard_params(self.params, cfg, self._plan)
+            self.cache = tp.put_cache(self.cache, self._plan)
         self._pad_ok = registry.pad_prefill_ok(cfg)
         self._prefix_cache = self.cm.prefix_cache
         self._cuda = self.device.type == "cuda"
@@ -350,14 +379,20 @@ class Engine:
         (the argmax step) or ``sample_tokens`` with each slot's emit count
         as the stream index (the sampling step), the stop conditions, and
         the emit pair ``(token or -1 where the slot was idle, done)``."""
-        logits, _ = self.cm.decode(self.params, self.cache, self._token,
-                                   self._pos, self._table)
-        logits = logits[:, :self.cfg.vocab]
-        if self._greedy_only:
-            nxt = torch.argmax(logits, dim=-1).to(I32)
-        else:
-            nxt = sample_tokens(logits, self._seed, self._emitted,
-                                self._temp, self._topk, self._topp)
+        with tp.active(self._plan):
+            logits, _ = self.cm.decode(self.params, self.cache, self._token,
+                                       self._pos, self._table)
+            logits = logits[:, :self.cfg.vocab]
+            if self._greedy_only:
+                nxt = torch.argmax(logits, dim=-1).to(I32)
+            else:
+                # a data shard's logits are its own slots' rows: the
+                # draw's per-slot buffers slice down to match
+                nxt = sample_tokens(logits, *map(tp.data_shard, (
+                    self._seed, self._emitted, self._temp, self._topk,
+                    self._topp)))
+            # the token back to every slot (identity off the mesh)
+            nxt = tp.gather_data(nxt)
         active = self._active
         new_pos = self._pos + 1
         new_emitted = self._emitted + active.to(I32)
@@ -395,9 +430,12 @@ class Engine:
                 d_j = self._drafts[:, j - 1]
                 flag = flag & (d_j == prev) & (j < budget)
                 x = d_j
-            logits, _ = self.cm.decode(self.params, self.cache, x, pos + j,
-                                       self._table, write_mask=flag)
-            t_j = torch.argmax(logits[:, :vocab], dim=-1).to(I32)
+            with tp.active(self._plan):
+                logits, _ = self.cm.decode(self.params, self.cache, x,
+                                           pos + j, self._table,
+                                           write_mask=flag)
+                t_j = tp.gather_data(
+                    torch.argmax(logits[:, :vocab], dim=-1).to(I32))
             carry = torch.where(flag, t_j, carry)
             self._emit[j].copy_(torch.where(flag, t_j, -1))
             commits = commits + flag.to(I32)
@@ -803,8 +841,9 @@ class Engine:
         frames = self.cfg.frontend == "frames"
         tokens = torch.tensor(prompt[None], device=self.device,
                               dtype=torch.float32 if frames else torch.long)
-        logits, kv = registry.prefill(self.params, self.cfg, tokens,
-                                      length=n if self._pad_ok else None)
+        with tp.active(self._plan):
+            logits, kv = registry.prefill(self.params, self.cfg, tokens,
+                                          length=n if self._pad_ok else None)
         self.cache = self.cm.write(self.cache, kv, slot=i, pages=pages)
         tok0 = self._first_token(logits, req, sp)
         self._set_slot(i, tok0, self._start_pos(n), len(req.out_tokens) + 1,
@@ -832,9 +871,10 @@ class Engine:
                               self._upload(self.cm.prefix_page_vec(i, ss)))
         tokens = torch.tensor(suffix[None], dtype=torch.long,
                               device=self.device)
-        logits, kv = registry.prefill_suffix(self.params, self.cfg, tokens,
-                                             prefix, prefix_len=ss,
-                                             length=s_len)
+        with tp.active(self._plan):
+            logits, kv = registry.prefill_suffix(self.params, self.cfg,
+                                                 tokens, prefix,
+                                                 prefix_len=ss, length=s_len)
         self.cache = self.cm.write(
             self.cache, kv,
             pages=self._upload(self.cm.suffix_pages(i, ss, n, sb)))
@@ -1307,5 +1347,7 @@ class Engine:
             out.update(self.chaos.stats())
         if self.cm.paged:
             out["preempt_mode"] = self.preempt_mode
+        if self._plan is not None:
+            out["mesh"] = self._plan.describe()
         out.update(self.cm.stats())
         return out

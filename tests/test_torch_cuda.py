@@ -1605,3 +1605,71 @@ def test_a_train_step_on_the_card_matches_the_cpu(dev):
     assert n["fused_add_rmsnorm"] == 4 * 9 * (
         2 if ops.get_variant("fused_add_rmsnorm").two_pass else 1)
     assert n["silu_and_mul"] == 4 * 4
+
+
+def test_reference_engine_on_the_card_matches_the_cpu(dev):
+    """fp32, reduced qwen2 and olmoe: the host-driven ``ReferenceEngine``
+    (eager decode on the contiguous cache, a host argmax per slot) gives
+    the same streams on the card as on the CPU, and the captured engine's
+    on the card."""
+    from repro_torch.serving import ReferenceEngine, Request
+    for arch in ("qwen2-0.5b", "olmoe-1b-7b"):
+        cfg, params = _smoke(arch)
+        lens = [5, 40, 17, 9, 33]
+        streams = []
+        for d in (dev, "cpu"):
+            eng = ReferenceEngine(params, cfg, slots=3, max_seq=128, device=d)
+            rng = np.random.default_rng(5)
+            for rid, n in enumerate(lens):
+                eng.submit(Request(rid=rid, prompt=rng.integers(
+                    0, cfg.vocab, n), max_new_tokens=12))
+            streams.append({r.rid: list(r.out_tokens) for r in eng.run()})
+        card, _ = _serve(params, cfg, dev, lens, 12, slots=3, max_seq=128)
+        assert streams[0] == streams[1] == card
+        assert len(card) == len(lens)
+
+
+def test_mesh_engine_at_world_one_matches_the_single_rank_engine(dev):
+    """fp32, reduced qwen3-8b: the tensor-parallel engine over a (1, 1)
+    mesh of one NCCL rank (heads, MLP and vocab "sharded" over one rank,
+    so every hook runs its all-gather) captures its step with the
+    collectives inside and gives the single-rank engine's streams, steps
+    and launches."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import (free_port, init_world,
+                                         make_local_mesh)
+    from repro_torch.sharding import tp
+    cfg, params = _smoke("qwen3-8b")
+    lens = [5, 40, 17, 60, 9, 33]
+    kw = dict(slots=4, max_seq=128)
+    ops.reset_launch_counts()
+    single, seng = _serve(params, cfg, dev, lens, 12, **kw)
+    want = ops.launch_counts()
+    init_world(dev, rank=0, world_size=1, port=free_port())
+    gathers = []
+    real = dist.all_gather_into_tensor
+
+    def counted(*a, **k):
+        gathers.append(torch.cuda.is_current_stream_capturing())
+        return real(*a, **k)
+    try:
+        dist.all_gather_into_tensor = counted
+        mesh = make_local_mesh(1, dev)
+        ops.reset_launch_counts()
+        sharded, eng = _serve(params, cfg, dev, lens, 12, mesh=mesh, **kw)
+        got = ops.launch_counts()
+    finally:
+        dist.all_gather_into_tensor = real
+        dist.destroy_process_group()
+    st = eng.stats()
+    assert st["mesh"] == {"data": 1, "model": 1, "heads_tp": True,
+                          "mlp_tp": True, "vocab_tp": True,
+                          "batch_dp": False}
+    assert sharded == single
+    assert got == want
+    assert st["steps"] == seng.stats()["steps"] == st["graph_replays"]
+    assert st["decode_captures"] == 1
+    # the capture recorded one decode pass's gathers: heads and MLP a
+    # layer, the vocab once
+    assert sum(gathers) == 2 * cfg.n_layers + 1
+    assert tp.current() is None
