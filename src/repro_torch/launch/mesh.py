@@ -5,12 +5,14 @@ constants, so importing this module touches no process group.
 ``cpu``): under ``torchrun`` from its environment, otherwise from the
 rank, world size and ``tcp://localhost`` port the caller gives.
 ``make_local_mesh`` lays that world out as a ``("data", "model")``
-``DeviceMesh``. The production TPU meshes of the JAX package
-(``make_production_mesh``) have no counterpart yet.
+``DeviceMesh``; ``make_production_mesh`` lays out the 256- or 512-card
+world of the dry run (``launch/dryrun.py``), which a fake process group
+of that size provides on any host.
 """
 
 from __future__ import annotations
 
+import math
 import os
 import socket
 
@@ -78,3 +80,32 @@ def make_local_mesh(model_parallel: int = 1, device=None):
     return init_device_mesh(resolve_device(device).type,
                             (n // model_parallel, model_parallel),
                             mesh_dim_names=("data", "model"))
+
+
+# the production meshes: HGX H100 nodes of 8 cards, NVLink within a node
+PRODUCTION_SHAPE = {False: (32, 8), True: (2, 32, 8)}
+PRODUCTION_AXES = {False: ("data", "model"), True: ("pod", "data", "model")}
+
+
+def make_production_mesh(*, multi_pod: bool = False, device_type="cuda"):
+    """The production H100 mesh over the default process group: ``(32,
+    8)`` ``("data", "model")``, 256 cards, or ``(2, 32, 8)`` ``("pod",
+    "data", "model")``, 512 (JAX's chip counts and axis names). The model
+    axis is 8 because an HGX H100 node's NVLink domain is 8 cards: a
+    16-way model axis, as on the TPU, would put every tensor-parallel
+    collective on the network. The ``pod`` axis is the second network hop;
+    gradient reduction composes ``(pod, data)`` (``sharding/rules.py``).
+
+    The world must already have that many ranks: on real cards through
+    ``init_world``, or, for the dry run, a fake process group of 256 or
+    512 (``torch.testing._internal.distributed.fake_pg``), which gives a
+    real ``DeviceMesh`` on one host with nothing allocated or sent."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    shape = PRODUCTION_SHAPE[multi_pod]
+    n = math.prod(shape)
+    if not dist.is_initialized() or dist.get_world_size() != n:
+        raise RuntimeError(f"make_production_mesh needs a default process "
+                           f"group of {n} ranks")
+    return init_device_mesh(device_type, shape,
+                            mesh_dim_names=PRODUCTION_AXES[multi_pod])

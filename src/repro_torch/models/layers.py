@@ -25,7 +25,7 @@ import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.sharding import tp
+from repro_torch.sharding import spmd, tp
 
 F32 = torch.float32
 MASKED = -1e30        # finite -inf of the JAX flash attention
@@ -98,15 +98,19 @@ def rope(x, positions, theta=10000.0):
 
 
 def embed_tokens(embedding, tokens):
-    """Rows of the ``[V_pad, D]`` embedding for integer ``tokens``."""
+    """Rows of the ``[V_pad, D]`` embedding for integer ``tokens`` (on
+    DTensors, on each rank's shards: ``spmd.take_rows``)."""
+    if spmd.distributed(embedding):
+        return spmd.take_rows(embedding, tokens)
     return embedding[tokens]
 
 
 def unembed(x, lm_head):
     """Logits over the padded vocab: ``[..., D] @ [D, V_pad]``. Under an
     active tensor-parallel plan that shards the vocab, the local product
-    covers a contiguous vocab slice, all-gathered back to full order."""
-    return tp.gather_vocab(x @ lm_head.to(x.dtype))
+    covers a contiguous vocab slice, all-gathered back to full order.
+    On DTensors ``x`` is pinned batch-split first (``spmd.shard_batch``)."""
+    return tp.gather_vocab(spmd.shard_batch(x) @ lm_head.to(x.dtype))
 
 
 def ce_loss(logits, labels, vocab: int):
@@ -127,7 +131,7 @@ def ce_loss(logits, labels, vocab: int):
 def _heads_matmul(x, w):
     """``x [B, S, D] @ w [D, H, dh] -> [B, S, H, dh]``."""
     d, h, dh = w.shape
-    return (x @ w.reshape(d, h * dh).to(x.dtype)).unflatten(-1, (h, dh))
+    return spmd.unflatten(x @ spmd.flatten(w, 1).to(x.dtype), -1, (h, dh))
 
 
 def qkv_proj(p, x, cfg: ModelConfig):
@@ -152,8 +156,7 @@ def out_proj(p, o, dtype):
     this rank's heads; they are all-gathered (concatenated, no partial
     sums) before the replicated ``wo`` product."""
     o = tp.gather_heads(o)
-    h, dh, d = p["wo"].shape
-    return o.flatten(-2) @ p["wo"].reshape(h * dh, d).to(dtype)
+    return spmd.flatten(o, -2) @ spmd.flatten(p["wo"], 0).to(dtype)
 
 
 def _heads_first(t, hkv: int):
@@ -265,8 +268,9 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        return (*_flash_backward(q, k, v, out, lse, dout, *ctx.args),
-                None, None, None)
+        with spmd.region("flash"):
+            grads = _flash_backward(q, k, v, out, lse, dout, *ctx.args)
+        return (*grads, None, None, None)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window=None,
@@ -284,11 +288,21 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
 
     With grad mode on and an input that requires grad, the call goes
     through ``_FlashAttention``, whose backward recomputes each chunk's
-    probabilities from the saved log-sum-exp (JAX's custom VJP)."""
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        return _FlashAttention.apply(q, k, v, causal, window, chunk)
-    return _flash_forward(q, k, v, causal, window, chunk)[0]
+    probabilities from the saved log-sum-exp (JAX's custom VJP).
+
+    It is JAX's ``flash`` kernel region (``spmd.region``); on DTensors it
+    runs on each rank's shards of batch and heads."""
+    if spmd.distributed(q, k, v):
+        return spmd.per_head(
+            lambda _, q, k, v: flash_attention(q, k, v, causal=causal,
+                                               window=window, chunk=chunk),
+            0, (q, k, v), ("b.h.", "b.k.", "b.k."),
+            out_roles=((q.shape, "b.h."),))
+    with spmd.region("flash"):
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            return _FlashAttention.apply(q, k, v, causal, window, chunk)
+        return _flash_forward(q, k, v, causal, window, chunk)[0]
 
 
 def attention_block(p, x, cfg: ModelConfig, *, positions=None):
@@ -340,7 +354,19 @@ def update_cache(cache_k, cache_v, k_new, v_new, pos) -> None:
     ``[B]``. A row at or past S is dropped, as the JAX scatter drops an
     out-of-range write (an idle slot's position keeps advancing past the
     cache): the write goes to row S - 1 with that row's own value, so no
-    index leaves the cache and nothing waits on the host."""
+    index leaves the cache and nothing waits on the host.
+
+    On DTensors each rank writes its own shard: its batch rows, and of a
+    sequence shard only the rows it holds (a position outside it is
+    dropped as one past S is)."""
+    if spmd.distributed(cache_k, cache_v, k_new, v_new):
+        def local(info, ck, cv, kn, vn, p):
+            p = p - info.seq_offset
+            update_cache(ck, cv, kn, vn,
+                         torch.where(p < 0, ck.shape[1], p))
+        spmd.per_head(local, 0, (cache_k, cache_v, k_new, v_new, pos),
+                       ("bsk.", "bsk.", "bk.", "bk.", "b"), seq_split=True)
+        return
     b, s = cache_k.shape[:2]
     idx = torch.arange(b, device=pos.device)
     keep = (pos < s)[:, None, None]

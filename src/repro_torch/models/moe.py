@@ -29,6 +29,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from repro_torch.sharding import spmd
 
 F32 = torch.float32
 
@@ -97,6 +98,16 @@ def init(cfg: ModelConfig, gen: torch.Generator, device) -> dict:
     return T.init_layers(cfg, gen, device, layer, cast_params)
 
 
+def param_axes(cfg: ModelConfig) -> dict:
+    """The logical axes of every leaf of ``init``'s tree (JAX's ``init``
+    axes, per layer)."""
+    layer = {"attn": T.attn_axes(cfg), "router": ("embed", "experts"),
+             "w_gateup": ("experts", "embed", "expert_mlp"),
+             "w_down": ("experts", "expert_mlp", "embed"),
+             "attn_norm": ("embed",), "mlp_norm": ("embed",)}
+    return T.model_axes(layers=[layer for _ in range(cfg.n_layers)])
+
+
 # --------------------------------------------------------------------------
 # MoE block
 # --------------------------------------------------------------------------
@@ -111,13 +122,25 @@ def route(probs, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def moe_block(p, x, cfg: ModelConfig):
+def moe_block(p, x, cfg: ModelConfig, first: int = 0):
     """x: ``[B, S, D]`` -> ``[B, S, D]`` through the top-k routed experts.
 
     The one-hots are comparisons with ``torch.arange``: a slot whose
     position is at or past the capacity gets a zero row (dropped), as
     ``jax.nn.one_hot`` gives, and no value is read on the host, so the
-    block runs inside a captured decode step."""
+    block runs inside a captured decode step.
+
+    On DTensors the experts run expert-parallel (``spmd.experts``): each
+    rank routes its tokens over every expert and runs its own experts;
+    ``first`` is then the index of this rank's first expert, and the
+    output a partial sum over the expert shards."""
+    if spmd.distributed(x):
+        return spmd.experts(lambda p, x, first: moe_block(p, x, cfg, first),
+                            p, x, group=min(GROUP, x.shape[0] * x.shape[1]))
+    return _moe(p, x, cfg, first)
+
+
+def _moe(p, x, cfg: ModelConfig, first: int):
     b, s, d = x.shape
     tokens = b * s
     check_tokens(tokens)
@@ -143,6 +166,11 @@ def moe_block(p, x, cfg: ModelConfig):
     # dispatch [N,G,E,C] and the weighted combine
     dispatch = torch.einsum("ngke,ngkc->ngec", onehot, pos_oh)
     combine = torch.einsum("ngke,ngkc,ngk->ngec", onehot, pos_oh, topv)
+    local = p["w_gateup"].shape[0]             # this rank's experts
+    if local < e:
+        dispatch = dispatch[:, :, first:first + local]
+        combine = combine[:, :, first:first + local]
+        e = local
 
     dt = x.dtype
     expert_in = torch.einsum("ngec,ngd->encd", dispatch.to(dt), xt)

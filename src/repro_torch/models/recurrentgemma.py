@@ -43,6 +43,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from repro_torch.sharding import spmd
 
 F32 = torch.float32
 C_RGLRU = 8.0
@@ -142,6 +143,24 @@ def init(cfg: ModelConfig, gen: torch.Generator, device) -> dict:
             "lm_head": normal((d, cfg.padded_vocab), d ** -0.5).to(dt)}
 
 
+def _rec_axes() -> dict:
+    return {"norm": ("embed",), "w_main": ("embed", "lru"),
+            "w_gate": ("embed", "lru"), "conv_w": ("conv", "lru"),
+            "w_a": ("lru", None), "w_x": ("lru", None), "lam": ("lru",),
+            "w_out": ("lru", "embed"), "mlp": dict(T.MLP_AXES),
+            "mlp_norm": ("embed",)}
+
+
+def param_axes(cfg: ModelConfig) -> dict:
+    """The logical axes of every leaf of ``init``'s tree (JAX's ``init``
+    axes, per period and per block)."""
+    n_periods, n_tail = _counts(cfg)
+    return T.model_axes(
+        periods=[{"rec": [_rec_axes() for _ in range(2)],
+                  "attn": T.layer_axes(cfg)} for _ in range(n_periods)],
+        tail=[_rec_axes() for _ in range(n_tail)])
+
+
 # --------------------------------------------------------------------------
 # RG-LRU block
 # --------------------------------------------------------------------------
@@ -149,7 +168,15 @@ def init(cfg: ModelConfig, gen: torch.Generator, device) -> dict:
 def _causal_conv(x, w, state=None):
     """Depthwise causal conv. x: ``[B, S, R]``; w: ``[width, R]``; state:
     ``[B, width - 1, R]`` (the previous inputs) or None (zeros). Returns
-    (out ``[B, S, R]``, the new state: the last ``width - 1`` inputs)."""
+    (out ``[B, S, R]``, the new state: the last ``width - 1`` inputs).
+    On DTensors it runs on each rank's batch and channels."""
+    if spmd.distributed(x, w):
+        s, r = x.shape[1], x.shape[2]
+        c = w.shape[0] - 1
+        return spmd.per_head(
+            lambda _, x, w, st: _causal_conv(x, w, st), 0, (x, w, state),
+            ("b.h", ".h", "b.h"),
+            out_roles=((x.shape, "b.h"), ((x.shape[0], c, r), "b.h")))
     width = w.shape[0]
     if state is None:
         pad = torch.zeros((x.shape[0], width - 1, x.shape[2]), dtype=x.dtype,
@@ -167,7 +194,16 @@ def _scan(a, b):
     doubling scan over the affine maps: at distance ``d`` each position
     composes the map ``d`` places back, ``b_t += a_t b_{t-d}`` and ``a_t
     *= a_{t-d}`` (Hillis-Steele; log2(S) rounds of whole-tensor
-    products)."""
+    products). It is the ``rglru`` kernel region; on DTensors it runs on
+    each rank's batch and channels."""
+    if spmd.distributed(a, b):
+        return spmd.per_head(lambda _, a, b: _scan(a, b), 0, (a, b),
+                             ("b.h", "b.h"), out_roles=((b.shape, "b.h"),))
+    with spmd.region("rglru"):
+        return _doubling_scan(a, b)
+
+
+def _doubling_scan(a, b):
     s, d = a.shape[1], 1
     while d < s:
         b = torch.cat([b[:, :d], b[:, d:] + a[:, d:] * b[:, :-d]], dim=1)
@@ -181,8 +217,9 @@ def rglru(p, xi, h0=None):
     ``[B, R]`` fp32 or None. Returns (h ``[B, S, R]`` in xi's dtype, the
     last state ``[B, R]`` in fp32)."""
     xf = xi.to(F32)
-    r = torch.sigmoid(xf @ p["w_a"].to(F32))
-    i = torch.sigmoid(xf @ p["w_x"].to(F32))
+    # on DTensors the gates are pinned batch- and channel-split
+    r = torch.sigmoid(spmd.shard_batch(xf @ p["w_a"].to(F32), "model"))
+    i = torch.sigmoid(spmd.shard_batch(xf @ p["w_x"].to(F32), "model"))
     log_a = -C_RGLRU * torch.nn.functional.softplus(p["lam"].to(F32)) * r
     a = torch.exp(log_a)
     gated = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a),
@@ -199,6 +236,7 @@ def rec_block(p, x, cfg: ModelConfig, state=None):
     ``(conv [B, width - 1, R], h [B, R])`` or None. Returns (x, (the new
     conv state, the new h))."""
     conv_state, h0 = (None, None) if state is None else state
+    x = spmd.shard_batch(x)
     normed = L.rms_norm(x, p["norm"], cfg.norm_eps)
     main = normed @ p["w_main"].to(x.dtype)
     gate = normed @ p["w_gate"].to(x.dtype)
@@ -206,7 +244,9 @@ def rec_block(p, x, cfg: ModelConfig, state=None):
     h, h_last = rglru(p, main, h0)
     # jax.nn.gelu is the tanh approximation by default
     y = h * torch.nn.functional.gelu(gate, approximate="tanh")
-    x = x + y @ p["w_out"].to(x.dtype)
+    # the residual stream pinned batch-split at the mid-block add too, its
+    # partial sum over ``model`` reduced there (on DTensors)
+    x = spmd.shard_batch(x + y @ p["w_out"].to(x.dtype))
     normed = L.rms_norm(x, p["mlp_norm"], cfg.norm_eps)
     return x + L.mlp_block(p["mlp"], normed), (new_conv, h_last)
 
@@ -214,9 +254,10 @@ def rec_block(p, x, cfg: ModelConfig, state=None):
 def attn_layer(p, x, cfg: ModelConfig):
     """The local-attention layer over a whole segment (prefill). Returns
     (x, this layer's ``(k, v)`` after rope)."""
+    x = spmd.shard_batch(x)
     normed = L.rms_norm(x, p["attn_norm"], cfg.norm_eps)
     attn_out, kv = L.attention_block(p["attn"], normed, cfg)
-    x = x + attn_out
+    x = spmd.shard_batch(x + attn_out)
     normed = L.rms_norm(x, p["mlp_norm"], cfg.norm_eps)
     return x + L.mlp_block(p["mlp"], normed), kv
 

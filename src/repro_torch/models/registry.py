@@ -58,6 +58,14 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> dict:
     return module_for(cfg).init(cfg, gen, dev)
 
 
+def param_axes(cfg: ModelConfig) -> dict:
+    """The logical axes (``sharding/rules.py``'s names) of every leaf of
+    ``init_params``' tree, in the same structure: the axes tree JAX's
+    ``init`` returns, without the leading ``layers`` (and ``stack``) axes of
+    its stacked leaves, since the port keeps one dict per layer."""
+    return module_for(cfg).param_axes(cfg)
+
+
 def init_master_params(cfg: ModelConfig, *, seed: int = 0,
                        device=None) -> dict:
     """``init_params``' draws with every leaf kept in fp32: the master
@@ -151,6 +159,12 @@ def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
     """A zeroed paged pool for ``cfg``."""
     return module_for(cfg).init_paged_cache(cfg, num_pages, page_size,
                                             device)
+
+
+def decode_step(params, cfg: ModelConfig, cache, token, pos):
+    """One decode step over the contiguous cache (JAX's
+    ``registry.decode_step``): ``decode_cached`` with no page table."""
+    return module_for(cfg).decode_step(params, cfg, cache, token, pos)
 
 
 def decode_cached(params, cfg: ModelConfig, cache, token, pos, *,
@@ -253,3 +267,30 @@ def copy_pages(cfg: ModelConfig, pool, src: int, dst: int):
     for p in pool.values():
         p[:, dst].copy_(p[:, src])
     return pool
+
+
+# --------------------------------------------------------------------------
+# input specs: (shape, dtype) and logical axes, the dry run's only "data"
+# --------------------------------------------------------------------------
+
+def batch_spec(cfg: ModelConfig, batch: int, seq: int):
+    """(``{name: (shape, dtype)}``, ``{name: logical axes}``) of a training
+    batch (``loss_fn``'s ``tokens``, ``labels`` and, for a frames frontend,
+    ``frames``)."""
+    tok = ((batch, seq), torch.int32)
+    spec = {"tokens": tok, "labels": tok}
+    axes = {"tokens": ("batch", None), "labels": ("batch", None)}
+    if cfg.frontend == "frames":
+        spec = {"frames": ((batch, seq, cfg.d_model), cfg.torch_dtype),
+                **spec}
+        axes = {"frames": ("batch", None, None), **axes}
+    return spec, axes
+
+
+def prompt_spec(cfg: ModelConfig, batch: int, seq: int):
+    """((shape, dtype), logical axes) of a prefill prompt: token ids, or
+    ``[batch, seq, d_model]`` frames for a frames frontend."""
+    if cfg.frontend == "frames":
+        return ((batch, seq, cfg.d_model), cfg.torch_dtype), \
+            ("batch", None, None)
+    return ((batch, seq), torch.int32), ("batch", None)

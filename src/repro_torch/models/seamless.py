@@ -43,6 +43,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from repro_torch.sharding import spmd
 
 # The encoder is bidirectional: pad frames would reach every position's
 # encoding, so source frames are always encoded at exact length.
@@ -91,16 +92,29 @@ def init(cfg: ModelConfig, gen: torch.Generator, device) -> dict:
             "lm_head": normal((d, cfg.padded_vocab), d ** -0.5).to(dt)}
 
 
+def param_axes(cfg: ModelConfig) -> dict:
+    """The logical axes of every leaf of ``init``'s tree (JAX's ``init``
+    axes, per layer)."""
+    dec = {**T.layer_axes(cfg), "cross": T.attn_axes(cfg),
+           "cross_norm": ("embed",)}
+    return {**T.model_axes(
+        enc_layers=[T.layer_axes(cfg) for _ in range(cfg.enc_layers)],
+        dec_layers=[dict(dec) for _ in range(cfg.n_layers)]),
+        "enc_norm": ("embed",)}
+
+
 # --------------------------------------------------------------------------
 # encoder
 # --------------------------------------------------------------------------
 
 def _enc_block(p, x, cos, sin, cfg: ModelConfig):
+    x = spmd.shard_batch(x)
     normed = L.rms_norm(x, p["attn_norm"], cfg.norm_eps)
     q, k, v = L.qkv_proj(p["attn"], normed, cfg)
     q, k = L.apply_rope(q, cos, sin), L.apply_rope(k, cos, sin)
     o = L.flash_attention(q, k, v, causal=False)
-    x = x + L.out_proj(p["attn"], o, x.dtype)
+    # pinned at the mid-block add, as the decoder's are (on DTensors)
+    x = spmd.shard_batch(x + L.out_proj(p["attn"], o, x.dtype))
     normed = L.rms_norm(x, p["mlp_norm"], cfg.norm_eps)
     return x + L.mlp_block(p["mlp"], normed)
 
@@ -119,7 +133,7 @@ def encode(params, cfg: ModelConfig, frames):
     cos, sin = _rope_table(x, cfg)
     for p in params["enc_layers"]:
         x = L.remat(_enc_block, p, x, cos, sin, cfg)
-    return L.rms_norm(x, params["enc_norm"], cfg.norm_eps)
+    return L.rms_norm(spmd.shard_batch(x), params["enc_norm"], cfg.norm_eps)
 
 
 # --------------------------------------------------------------------------
@@ -127,18 +141,19 @@ def encode(params, cfg: ModelConfig, frames):
 # --------------------------------------------------------------------------
 
 def _dec_block(p, x, enc, cos, sin, cfg: ModelConfig):
+    x = spmd.shard_batch(x)
     # causal self-attention
     normed = L.rms_norm(x, p["attn_norm"], cfg.norm_eps)
     q, k, v = L.qkv_proj(p["attn"], normed, cfg)
     q, k = L.apply_rope(q, cos, sin), L.apply_rope(k, cos, sin)
     o = L.flash_attention(q, k, v, causal=True)
-    x = x + L.out_proj(p["attn"], o, x.dtype)
+    x = spmd.shard_batch(x + L.out_proj(p["attn"], o, x.dtype))
     # cross-attention to the encoder output
     normed = L.rms_norm(x, p["cross_norm"], cfg.norm_eps)
     qc, _, _ = L.qkv_proj(p["cross"], normed, cfg)
     _, kc, vc = L.qkv_proj(p["cross"], enc.to(x.dtype), cfg)
     oc = L.flash_attention(qc, kc, vc, causal=False)
-    x = x + L.out_proj(p["cross"], oc, x.dtype)
+    x = spmd.shard_batch(x + L.out_proj(p["cross"], oc, x.dtype))
     normed = L.rms_norm(x, p["mlp_norm"], cfg.norm_eps)
     return x + L.mlp_block(p["mlp"], normed)
 
@@ -219,6 +234,7 @@ def decode_step(params, cfg: ModelConfig, cache, token, pos):
     cos, sin = L.rope_angles(pos[:, None], cfg.head_dim, cfg.rope_theta)
     for li, p in enumerate(params["dec_layers"]):
         k_l, v_l = cache["k"][li], cache["v"][li]
+        x = spmd.shard_batch(x)
         normed = L.rms_norm(x, p["attn_norm"], cfg.norm_eps)
         q, k_new, v_new = L.qkv_proj(p["attn"], normed, cfg)
         q = L.apply_rope(q, cos, sin)
@@ -226,13 +242,13 @@ def decode_step(params, cfg: ModelConfig, cache, token, pos):
         L.update_cache(k_l, v_l, k_new[:, 0], v_new[:, 0], pos)
         o = ops.flash_decode_attention(q[:, 0].contiguous(), k_l, v_l,
                                        kv_len=kv_len)
-        x = x + L.out_proj(p["attn"], o[:, None], o.dtype)
+        x = spmd.shard_batch(x + L.out_proj(p["attn"], o[:, None], o.dtype))
         normed = L.rms_norm(x, p["cross_norm"], cfg.norm_eps)
         qc = L._heads_matmul(normed, p["cross"]["wq"])
         oc = ops.flash_decode_attention(qc[:, 0].contiguous(),
                                         cache["ck"][li], cache["cv"][li],
                                         kv_len=src_len)
-        x = x + L.out_proj(p["cross"], oc[:, None], oc.dtype)
+        x = spmd.shard_batch(x + L.out_proj(p["cross"], oc[:, None], oc.dtype))
         normed = L.rms_norm(x, p["mlp_norm"], cfg.norm_eps)
         x = x + L.mlp_block(p["mlp"], normed)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)

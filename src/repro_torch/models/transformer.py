@@ -32,7 +32,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
-from repro_torch.sharding import tp
+from repro_torch.sharding import spmd, tp
 
 # Right-padding a prompt to a bucketed length is exact: the cache is
 # positional K/V and attention is causal, so pad positions never reach
@@ -134,6 +134,45 @@ def init(cfg: ModelConfig, gen: torch.Generator, device) -> dict:
     return init_layers(cfg, gen, device, layer, cast_params)
 
 
+# the logical axes of each weight, JAX's ``init`` axes trees without the
+# leading ``layers`` axis of its stacked layers (the port's are a list)
+MLP_AXES = {"w_gateup": ("embed", "mlp"), "w_down": ("mlp", "embed")}
+
+
+def attn_axes(cfg: ModelConfig) -> dict:
+    """The logical axes of ``attn_init``'s leaves."""
+    ax = {"wq": ("embed", "heads", "head_dim"),
+          "wk": ("embed", "kv_heads", "head_dim"),
+          "wv": ("embed", "kv_heads", "head_dim"),
+          "wo": ("heads", "head_dim", "embed")}
+    if cfg.qkv_bias:
+        ax.update(bq=("heads", "head_dim"), bk=("kv_heads", "head_dim"),
+                  bv=("kv_heads", "head_dim"))
+    if cfg.qk_norm:
+        ax.update(q_norm=("head_dim",), k_norm=("head_dim",))
+    return ax
+
+
+def model_axes(**blocks) -> dict:
+    """The axes of the embedding, the final norm and the output head,
+    with the family's ``blocks`` (lists of per-layer axes trees)."""
+    return {"embed": ("embed_vocab", "mlp"), **blocks,
+            "final_norm": ("embed",), "lm_head": ("embed", "vocab")}
+
+
+def layer_axes(cfg: ModelConfig) -> dict:
+    """The axes of one dense layer's leaves."""
+    return {"attn": attn_axes(cfg), "mlp": dict(MLP_AXES),
+            "attn_norm": ("embed",), "mlp_norm": ("embed",)}
+
+
+def param_axes(cfg: ModelConfig) -> dict:
+    """The logical axes of every leaf of ``init``'s tree (the axes tree
+    JAX's ``init`` returns, per layer)."""
+    return model_axes(layers=[layer_axes(cfg)
+                              for _ in range(cfg.n_layers)])
+
+
 def dense_ffn(p, x):
     """The dense layer's feed-forward sublayer: the SwiGLU MLP."""
     return L.mlp_block(p["mlp"], x)
@@ -144,6 +183,7 @@ def dense_ffn(p, x):
 # --------------------------------------------------------------------------
 
 def _block_train(p, hidden, residual, cfg: ModelConfig, ffn):
+    hidden, residual = spmd.shard_batch(hidden), spmd.shard_batch(residual)
     normed, residual = L.add_rms_norm(hidden, residual, p["attn_norm"],
                                       cfg.norm_eps)
     attn_out, _ = L.attention_block(p["attn"], normed, cfg)
@@ -242,6 +282,7 @@ def prefill(params, cfg: ModelConfig, tokens, *, length: int | None = None,
     residual = torch.zeros_like(hidden)
     ks, vs = [], []
     for p in params["layers"]:
+        hidden, residual = spmd.shard_batch(hidden), spmd.shard_batch(residual)
         normed, residual = L.add_rms_norm(hidden, residual, p["attn_norm"],
                                           cfg.norm_eps)
         attn_out, (k, v) = L.attention_block(p["attn"], normed, cfg)

@@ -54,6 +54,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from repro_torch.sharding import spmd
 
 F32 = torch.float32
 CHUNK = 64            # JAX's scan chunk, and the chunk of the port's scans
@@ -156,6 +157,26 @@ def init(cfg: ModelConfig, gen: torch.Generator, device) -> dict:
             "lm_head": normal((d, cfg.padded_vocab), d ** -0.5).to(dt)}
 
 
+MLSTM_AXES = {"norm": ("embed",), "w_up": ("embed", "mlp"),
+              "w_gate": ("embed", "mlp"),
+              "w_q": ("heads", "head_dim", None),
+              "w_k": ("heads", "head_dim", None),
+              "w_v": ("heads", "head_dim", None),
+              "w_i": ("heads", "head_dim"), "w_f": ("heads", "head_dim"),
+              "w_down": ("mlp", "embed")}
+SLSTM_AXES = {"norm": ("embed",), "w_z": ("embed", "mlp"),
+              "w_i": ("embed", "mlp"), "w_f": ("embed", "mlp"),
+              "w_o": ("embed", "mlp"), "w_down": ("mlp", "embed")}
+
+
+def param_axes(cfg: ModelConfig) -> dict:
+    """The logical axes of every leaf of ``init``'s tree (JAX's ``init``
+    axes, per period and per block)."""
+    return T.model_axes(periods=[
+        {"mlstm": [dict(MLSTM_AXES) for _ in range(PERIOD - 1)],
+         "slstm": dict(SLSTM_AXES)} for _ in range(_periods(cfg))])
+
+
 # --------------------------------------------------------------------------
 # the chunkwise form of the scans
 # --------------------------------------------------------------------------
@@ -195,7 +216,7 @@ def _mlstm_qkvif(p, x, cfg: ModelConfig):
     b, s, _ = x.shape
     u = x @ p["w_up"].to(x.dtype)
     z = x @ p["w_gate"].to(x.dtype)
-    uh = u.reshape(b, s, cfg.n_heads, dh)
+    uh = spmd.unflatten(u, -1, (cfg.n_heads, dh))
     q = torch.einsum("bshe,heq->bshq", uh, p["w_q"].to(x.dtype))
     k = torch.einsum("bshe,heq->bshq", uh, p["w_k"].to(x.dtype)) \
         * (dqk ** -0.5)
@@ -211,6 +232,12 @@ def _mlstm_step_(C, n, m, q, k, v, log_i, log_f):
     """One mLSTM step on the state ``C [B, H, K, V]``, ``n [B, H, K]``,
     ``m [B, H]``, updated in place; q, k ``[B, H, K]``, v ``[B, H, V]``,
     the log-gates ``[B, H]``, all fp32. Returns h ``[B, H, V]``."""
+    if spmd.distributed(C, q):
+        return spmd.per_head(
+            lambda _, *t: _mlstm_step_(*t), 0,
+            (C, n, m, q, k, v, log_i, log_f),
+            ("bh..", "bh.", "bh", "bh.", "bh.", "bh.", "bh", "bh"),
+            out_roles=((v.shape, "bh."),))
     m_new = torch.maximum(log_f + m, log_i)
     i_ = torch.exp(log_i - m_new)
     f_ = torch.exp(log_f + m - m_new)
@@ -227,6 +254,11 @@ def _mlstm_chunk(state, q, k, v, log_i, log_f):
     """The mLSTM over one chunk at once, from ``state`` (C, n, m); q, k
     ``[B, H, c, K]``, v ``[B, H, c, V]``, the log-gates ``[B, H, c]``, all
     fp32. Returns (the state after the chunk, h ``[B, H, c, V]``)."""
+    with spmd.region("mlstm"):      # the recompute in backward too
+        return _mlstm_chunk_math(state, q, k, v, log_i, log_f)
+
+
+def _mlstm_chunk_math(state, q, k, v, log_i, log_f):
     C0, n0, m0 = state
     D, g, m = _weights(m0, log_i, log_f)
     s = (q @ k.transpose(-1, -2)) * D                   # [B, H, c, c]
@@ -243,7 +275,28 @@ def _mlstm_chunk(state, q, k, v, log_i, log_f):
 
 def _mlstm_scan(state, q, k, v, log_i, log_f):
     """The mLSTM over a ``[B, S, H, *]`` segment, chunk by chunk; returns
-    (the last state, h ``[B, S, H, V]`` in fp32)."""
+    (the last state, h ``[B, S, H, V]`` in fp32). It is JAX's ``mlstm``
+    kernel region; on DTensors it runs on each rank's batch and heads."""
+    if spmd.distributed(q, *state):
+        C, n, m = state
+        C, n, m, h = spmd.per_head(
+            lambda _, C, n, m, *t: _flat_scan(_mlstm_scan, (C, n, m), *t),
+            3, (C, n, m, q, k, v, log_i, log_f),
+            ("bh..", "bh.", "bh", "b.h.", "b.h.", "b.h.", "b.h", "b.h"),
+            out_roles=((C.shape, "bh.."), (n.shape, "bh."), (m.shape, "bh"),
+                       ((*v.shape,), "b.h.")))
+        return (C, n, m), h
+    with spmd.region("mlstm"):
+        return _mlstm_chunks(state, q, k, v, log_i, log_f)
+
+
+def _flat_scan(scan, state, *inputs):
+    """``scan``'s (state, h) as one flat tuple."""
+    state, h = scan(state, *inputs)
+    return (*state, h)
+
+
+def _mlstm_chunks(state, q, k, v, log_i, log_f):
     q, k, v = (t.to(F32).transpose(1, 2) for t in (q, k, v))
     log_i, log_f = log_i.transpose(1, 2), log_f.transpose(1, 2)
     hs = []
@@ -269,14 +322,15 @@ def mlstm_empty(cfg: ModelConfig, batch: int, device):
 def _mlstm_out(p, x, h, z):
     """The block's output: h (``[B, S, H, V]`` fp32) gated by silu(z),
     projected down, added to the residual x."""
-    b, s, _ = x.shape
-    h = h.reshape(b, s, -1).to(x.dtype) * F.silu(z)
-    return x + h @ p["w_down"].to(x.dtype)
+    h = spmd.flatten(h, -2).to(x.dtype) * F.silu(z)
+    # on DTensors h is pinned batch- and width-split before the product
+    return x + spmd.shard_batch(h, "model") @ p["w_down"].to(x.dtype)
 
 
 def _mlstm_decode(p, x, cfg: ModelConfig, state):
     """One step (``x [B, 1, D]``) of the mLSTM block, updating ``state``
     (C, n, m; the cache leaves at decode) in place."""
+    x = spmd.shard_batch(x)
     normed = L.rms_norm(x, p["norm"], cfg.norm_eps)
     q, k, v, log_i, log_f, z = _mlstm_qkvif(p, normed, cfg)
     h = _mlstm_step_(*state, q[:, 0].to(F32), k[:, 0].to(F32),
@@ -286,6 +340,7 @@ def _mlstm_decode(p, x, cfg: ModelConfig, state):
 
 def _mlstm_seq(p, x, cfg: ModelConfig, state):
     """The mLSTM block over ``x [B, S, D]`` by the chunkwise scan."""
+    x = spmd.shard_batch(x)
     normed = L.rms_norm(x, p["norm"], cfg.norm_eps)
     q, k, v, log_i, log_f, z = _mlstm_qkvif(p, normed, cfg)
     state, h = _mlstm_scan(state, q, k, v, log_i, log_f)
@@ -321,6 +376,10 @@ def _slstm_gates(p, x, cfg: ModelConfig):
 def _slstm_step_(c, n, m, z, i, f):
     """One sLSTM step on the state ``c``, ``n``, ``m [B, D]``, updated in
     place; z, i, f ``[B, D]`` fp32. Returns h ``[B, D]``."""
+    if spmd.distributed(c, z):
+        return spmd.per_head(lambda _, *t: _slstm_step_(*t), 0,
+                             (c, n, m, z, i, f), ("bh",) * 6,
+                             out_roles=((c.shape, "bh"),))
     log_f = -F.softplus(-f)
     m_new = torch.maximum(log_f + m, i)
     iw = torch.exp(i - m_new)
@@ -334,6 +393,11 @@ def _slstm_step_(c, n, m, z, i, f):
 def _slstm_chunk(state, z, i, log_f):
     """The sLSTM over one chunk at once; z, i, log_f ``[B, D, c]`` fp32.
     Returns (the state after the chunk, h ``[B, D, c]``)."""
+    with spmd.region("slstm"):      # the recompute in backward too
+        return _slstm_chunk_math(state, z, i, log_f)
+
+
+def _slstm_chunk_math(state, z, i, log_f):
     c0, n0, m0 = state
     D, g, m = _weights(m0, i, log_f)
     c = g * c0[..., None] + (D @ torch.tanh(z)[..., None])[..., 0]
@@ -344,7 +408,21 @@ def _slstm_chunk(state, z, i, log_f):
 
 def _slstm_scan(state, z, i, f):
     """The sLSTM over ``[B, S, D]`` gates, chunk by chunk; returns (the
-    last state, h ``[B, S, D]`` fp32)."""
+    last state, h ``[B, S, D]`` fp32). It is JAX's ``slstm`` kernel
+    region; on DTensors it runs on each rank's batch and channels."""
+    if spmd.distributed(z, *state):
+        c, n, m = state
+        c, n, m, h = spmd.per_head(
+            lambda _, c, n, m, *t: _flat_scan(_slstm_scan, (c, n, m), *t),
+            3, (c, n, m, z, i, f), ("bh", "bh", "bh", "b.h", "b.h", "b.h"),
+            out_roles=((c.shape, "bh"), (n.shape, "bh"), (m.shape, "bh"),
+                       (z.shape, "b.h")))
+        return (c, n, m), h
+    with spmd.region("slstm"):
+        return _slstm_chunks(state, z, i, f)
+
+
+def _slstm_chunks(state, z, i, f):
     z, i = z.transpose(1, 2), i.transpose(1, 2)
     log_f = (-F.softplus(-f)).transpose(1, 2)
     hs = []
@@ -372,6 +450,7 @@ def _slstm_out(p, x, h, o):
 def _slstm_decode(p, x, cfg: ModelConfig, state):
     """One step (``x [B, 1, D]``) of the sLSTM block, updating ``state``
     (c, n, m; the cache leaves at decode) in place."""
+    x = spmd.shard_batch(x)
     z, i, f, o = _slstm_gates(p, x, cfg)
     h = _slstm_step_(*state, z[:, 0], i[:, 0], f[:, 0])
     return _slstm_out(p, x, h[:, None], o)
@@ -379,6 +458,7 @@ def _slstm_decode(p, x, cfg: ModelConfig, state):
 
 def _slstm_seq(p, x, cfg: ModelConfig, state):
     """The sLSTM block over ``x [B, S, D]`` by the chunkwise scan."""
+    x = spmd.shard_batch(x)
     z, i, f, o = _slstm_gates(p, x, cfg)
     state, h = _slstm_scan(state, z, i, f)
     return _slstm_out(p, x, h, o), state

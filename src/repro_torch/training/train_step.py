@@ -16,6 +16,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import registry
+from repro_torch.sharding import spmd
 from repro_torch.training import compression, optimizer as opt
 from repro_torch.training import tree as T
 
@@ -24,15 +25,23 @@ F32 = torch.float32
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """``cast_params``: the dtype that every fp32 parameter of two or more
+    """``batch_axes``: the mesh axes that carry the batch dimension (e.g.
+    ``("pod", "data")``) of a step over DTensors (``launch/dryrun.py``):
+    microbatch i is then each batch shard's i-th share of its own rows, so
+    every microbatch stays split over those axes and the split moves no
+    data (JAX constrains its ``[M, B/M]`` split to them to the same end);
+    the compute copy of the weights is gathered along them once a step.
+    Empty, the batch is cut into ``microbatches`` runs of rows as one
+    tensor (one card).
+
+    ``cast_params``: the dtype that every fp32 parameter of two or more
     dimensions is cast to once a step, before the microbatches (the
     compute copy; gradients come back in it and accumulate in fp32), or
-    None to differentiate the fp32 masters themselves. JAX's
-    ``batch_axes`` (the mesh axes of the batch dimension) has no meaning
-    on one card and is not here."""
+    None to differentiate the fp32 masters themselves."""
     microbatches: int = 1
     compress_grads: bool = False
     adamw: opt.AdamWConfig = dataclasses.field(default_factory=opt.AdamWConfig)
+    batch_axes: tuple = ()
     cast_params: str | None = "bfloat16"
 
 
@@ -57,14 +66,24 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
     def compute_copy(p):
         if cast is not None and p.dtype == F32 and p.ndim >= 2:
             p = p.to(cast)
-        return p.detach().requires_grad_()
+        # over a mesh, the compute copy is gathered along the batch axes
+        # once a step (the FSDP gather); its gradients stay partial sums
+        # over the microbatches, reduce-scattered once after them
+        return spmd.gather_over(p, tcfg.batch_axes).detach() \
+            .requires_grad_()
 
     def grads_of(params, batch):
         leaves = [compute_copy(p) for p in T.leaves(params)]
         tree = T.rebuild(params, leaves)
         m = tcfg.microbatches
-        micro = [{k: v.chunk(m)[i] for k, v in batch.items()}
-                 for i in range(m)] if m > 1 else [batch]
+        if m > 1 and tcfg.batch_axes:
+            parts = {k: spmd.split_rows(v, m) for k, v in batch.items()}
+            micro = [{k: v[i] for k, v in parts.items()} for i in range(m)]
+        elif m > 1:
+            micro = [{k: v.chunk(m)[i] for k, v in batch.items()}
+                     for i in range(m)]
+        else:
+            micro = [batch]
         gsum = lsum = None
         for mb in micro:
             loss = registry.loss_fn(tree, cfg, mb)
@@ -74,8 +93,12 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
             if gsum is None:
                 gsum, lsum = g, loss.detach()
             else:
-                torch._foreach_add_(gsum, g)
+                spmd.accumulate(gsum, g)
                 lsum = lsum + loss.detach()
+        if tcfg.batch_axes:
+            # the partial sums over the batch shards, reduce-scattered to
+            # the masters' placements
+            gsum = [spmd.like(g, p) for g, p in zip(gsum, T.leaves(params))]
         if m > 1:
             torch._foreach_div_(gsum, m)
             lsum = lsum / m
