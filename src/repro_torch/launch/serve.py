@@ -84,18 +84,20 @@ before the JSON:
         --device cpu --tp 2 --nproc 4
 
 It prints one JSON line of serving metrics (tok/s, mean TTFT, the mean
-wall time of a decode step, steps, readbacks, kernel launches,
+wall time of a decode step, steps, readbacks, the readbacks settled
+before a step's dispatch (``drains_before_dispatch``), kernel launches,
 preemptions and pages swapped, the decode step's captures and graph
 replays, the scheduler's reorders, the prefix cache's hit tokens, suffix
 prefills and copy-on-write copies, the request lifecycle's outcomes and
 the faults injected, the spec counters, and on the card the peak memory
 and the card's name and power limit). ``--profile`` adds, for the measured
-run, the device's busy share of the wall time, the host's
-``cudaLaunchKernel`` and ``cudaGraphLaunch``
+run, the host's ``cudaLaunchKernel`` and ``cudaGraphLaunch``
 calls, each of the port's kernels by name with its launches and device
 time as the profiler saw them (kernels inside graph replays included
-where the profiler reports them), and the top operators by device time
-and by host time.
+where the profiler reports them), the top operators by device time
+and by host time, and the engine's spans (``serving/tracing.py``, with
+device times on the card) as a table: count, total, mean and self time
+of each span name.
 """
 
 from __future__ import annotations
@@ -119,6 +121,7 @@ from repro_torch.launch.mesh import (free_port, init_world, make_local_mesh,
 from repro_torch.models import registry
 from repro_torch.reliability import Fault
 from repro_torch.serving import LLMEngine, SamplingParams, SpecConfig
+from repro_torch.serving import tracing
 
 LIFECYCLE = ("aborted", "rejected", "failed", "deadline_expired",
              "recoveries")
@@ -280,7 +283,8 @@ def measure(params, cfg, prompts, *, max_new: int, slots: int,
     with the tree's pages, then ``pool_released`` says whether every page
     in use was the tree's and clearing the tree emptied the pool.
     ``profile_rows > 0`` runs the measured wave under ``torch.profiler``
-    and prints its top operators."""
+    and the engine's tracer, prints its top operators and its span table,
+    and returns the table's rows as ``spans``."""
     dev = resolve_device(device)
     cuda = dev.type == "cuda"
     kw = dict(slots=slots, max_seq=max_seq, page_size=page_size, device=dev,
@@ -310,12 +314,15 @@ def measure(params, cfg, prompts, *, max_new: int, slots: int,
     prof = torch.profiler.profile(activities=acts) if profile_rows \
         else contextlib.nullcontext()
     with prof:
+        if profile_rows:
+            llm.engine.tracer.start()
         t0 = time.perf_counter()
         outs = llm.generate(prompts, sampling, max_new_tokens=max_new,
                             priorities=priorities, deadlines=deadlines)
         if cuda:
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        spans = llm.engine.tracer.stop()
     st = llm.stats()
     out = {"arch": cfg.name, "d_model": cfg.d_model,
            "n_layers": cfg.n_layers, "dtype": cfg.dtype,
@@ -326,6 +333,7 @@ def measure(params, cfg, prompts, *, max_new: int, slots: int,
            "wall_s": wall, "tok_s": st["tok_s"], "ttft_s": st["ttft"],
            "decode_step_s": st["decode_step_s"],
            "steps": st["steps"], "readbacks": st["readbacks"],
+           "drains_before_dispatch": st["drains_before_dispatch"],
            "prefill_buckets": st["prefill_shapes"],
            "decode_captures": st["decode_captures"],
            "graph_replays": st["graph_replays"],
@@ -379,7 +387,6 @@ def measure(params, cfg, prompts, *, max_new: int, slots: int,
         dev_us = sum(e.self_device_time_total for e in ev
                      if e.device_type == torch.autograd.DeviceType.CUDA
                      and not e.is_user_annotation)
-        out["device_busy_share"] = dev_us / (wall * 1e6) if cuda else None
         out["device_kernel_s"] = dev_us / 1e6
         out["kernel_launches"] = sum(e.count for e in ev
                                      if e.key == "cudaLaunchKernel")
@@ -399,6 +406,8 @@ def measure(params, cfg, prompts, *, max_new: int, slots: int,
         if cuda:
             print(ev.table(sort_by="self_cpu_time_total",
                            row_limit=profile_rows))
+        out["spans"] = tracing.summarize(spans)
+        print(tracing.table(out["spans"]))
     return out, outs
 
 

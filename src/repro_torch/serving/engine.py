@@ -133,6 +133,19 @@ at once each step (one readback a step), and only greedy requests are
 admitted. The n-gram drafter is host work; the draft model's passes run
 the contiguous ``flash_decode`` kernel on its own cache.
 
+**Spans.** ``tracer`` (``serving/tracing.py``) records the host's work at
+the engine's boundaries while it is started: ``engine.step`` with its
+``engine.drain`` (cause ``before_dispatch``, ``idle``, ``pages``,
+``flush``, ``abort``, ``deadline`` or ``recovery``),
+``engine.readback_wait`` and ``engine.apply``; per admission
+``cache.admit_prompt`` or ``cache.alloc``, then ``engine.admit`` with
+``engine.prefill.launch``, ``engine.first_token`` and
+``cache.insert_prompt``, and the request's ``request.queue`` wait;
+``cache.ensure_pages`` with ``engine.preempt`` and ``engine.swap_out``;
+``engine.dispatch`` with ``engine.table_upload``, ``engine.capture`` and
+``engine.replay``. Per-slot work gets no span. Off, each site costs one
+attribute test.
+
 **Tensor parallelism** (``mesh=``, a ``(data, model)`` ``DeviceMesh``;
 the dense family on the paged pool). SPMD: every rank builds the same
 engine and runs the same host loop, keeping its shard of the weights and
@@ -166,6 +179,7 @@ from repro_torch.serving.chaos import ChaosInjector
 from repro_torch.serving.sampling import SamplingParams, sample_tokens
 from repro_torch.serving.scheduler import make_preemption, make_scheduler
 from repro_torch.serving.spec import make_drafter
+from repro_torch.serving.tracing import Tracer
 from repro_torch.sharding import tp
 
 I32 = torch.int32
@@ -331,7 +345,10 @@ class Engine:
         self._readbacks = 0
         self._tokens_out = 0
         self._run_s = 0.0
-        self._ttfts: list[float] = []       # submit -> first token, s
+        self._ttft_s = 0.0                  # submit -> first token, s,
+        self._ttft_n = 0                    # summed over requests
+        self._drains_first = 0              # readbacks settled before a
+        #                                     dispatch (``step``)
         self._prefills = 0                  # whole-prompt prefills
         self._prefill_shapes: set[int] = set()
         self._suffix_shapes: set[int] = set()
@@ -349,6 +366,8 @@ class Engine:
         self._capture_s = 0.0
         # step variant -> the last capture's seconds and graph pool MiB
         self._capture_by: dict = {}
+        # spans of the host's work, off until ``tracer.start()``
+        self.tracer = Tracer(self.device)
         if self._cuda:
             self._capture()
 
@@ -534,38 +553,54 @@ class Engine:
         if self._table is None or self.cm.table_version == \
                 self._table_version:
             return
+        tr = self.tracer
+        sp = tr.open("engine.table_upload") if tr.on else None
         src = torch.from_numpy(self.cm.page_table())
         if self._cuda:
             src = src.pin_memory()
         self._table.copy_(src, non_blocking=True)
         self._table_version = self.cm.table_version
         self._table_uploads += 1
+        if sp is not None:
+            tr.close(sp)
 
     def _dispatch(self, drafts: Optional[np.ndarray] = None):
         """Queue one decode step and its readback; returns (host buffer,
         the event that marks the copy complete, or None on the CPU).
         ``drafts``: a host drafter's ``[slots, k]`` proposals, copied into
         the static draft buffer before the step, like the page table."""
+        tr = self.tracer
+        sp = tr.open("engine.dispatch") if tr.on else None
         self._sync_table()
         if drafts is not None:
             src = torch.from_numpy(drafts)
             if self._cuda:
                 src = src.pin_memory()
             self._drafts.copy_(src, non_blocking=True)
+        if self._cuda and self._variant_key() != self._graph_key:
+            cp = tr.open("engine.capture") if tr.on else None
+            self._capture()
+            if cp is not None:
+                tr.close(cp)
+        # on the CPU the body runs eagerly in the replay's place
+        rp = tr.open("engine.replay", step=self._steps, timed=True) \
+            if tr.on else None
         if not self._cuda:
             self._run_step()
         else:
-            if self._variant_key() != self._graph_key:
-                self._capture()
             self._graph.replay()
             ops.add_launch_counts(self._graph_delta)
             self._replays += 1
+        if rp is not None:
+            tr.close(rp)
         host = self._host[self._steps % 2]
         host.copy_(self._emit, non_blocking=True)
-        if not self._cuda:
-            return host, None
-        event = torch.cuda.Event()
-        event.record()
+        event = None
+        if self._cuda:
+            event = torch.cuda.Event()
+            event.record()
+        if sp is not None:
+            tr.close(sp)
         return host, event
 
     # -- request lifecycle ---------------------------------------------------
@@ -671,7 +706,7 @@ class Engine:
             return True
         for i, slot in enumerate(self.slots):
             if slot.req is req:
-                self._drain()
+                self._drain("abort")
                 if self.slots[i].req is req:
                     self._cancel_resident(i, reason, error)
                 return True
@@ -692,7 +727,7 @@ class Engine:
                 req.swap_state = None
                 self._finish(req, "deadline")
         if any(s.req is not None and expired(s.req) for s in self.slots):
-            self._drain()
+            self._drain("deadline")
             for i, slot in enumerate(self.slots):
                 if slot.req is not None and expired(slot.req):
                     self._cancel_resident(i, "deadline")
@@ -728,6 +763,7 @@ class Engine:
         return sp
 
     def _admit(self) -> None:
+        tr = self.tracer
         for i, slot in enumerate(self.slots):
             if slot.req is not None or not len(self.scheduler):
                 continue
@@ -744,17 +780,23 @@ class Engine:
                 prompt = np.concatenate(
                     [prompt, np.asarray(req.out_tokens, prompt.dtype)])
             n = len(prompt)
+            cs = tr.open("cache.admit_prompt" if self._prefix_cache
+                         else "cache.alloc", rid=req.rid) if tr.on else None
             plan = None
             if self._prefix_cache:
                 # maps the longest cached prefix read-only and reserves
                 # private pages for the rest
                 plan = self.cm.admit_prompt(i, prompt)
-                if plan is None:
-                    return         # head-of-line: admission waits for pages
-            elif not self.cm.alloc(i, n):
+                held = plan is not None
+            else:
+                held = self.cm.alloc(i, n)
+            if cs is not None:
+                tr.close(cs)
+            if not held:
                 return             # head-of-line: admission waits for pages
             self.scheduler.pop()
             self._admissions += 1
+            ad = self._trace_admit(req) if tr.on else None
             sp = self._sampling_of(req)
             if plan is not None and plan["suffix_start"] > 0:
                 tok0 = self._prefill_suffix(i, req, prompt, plan, sp)
@@ -767,12 +809,17 @@ class Engine:
                 self._drafter.prefill(i, prompt)
             if self._prefix_cache:
                 # the prompt's full pages are written: publish them
+                ins = tr.open("cache.insert_prompt", rid=req.rid) \
+                    if ad is not None else None
                 self.cm.insert_prompt(i, prompt, n)
+                if ins is not None:
+                    tr.close(ins)
             req.out_tokens.append(tok0)     # host sync: admission only
             self._tokens_out += 1
             if not req.t_first:
                 req.t_first = time.perf_counter()
-                self._ttfts.append(req.t_first - req.t_submit)
+                self._ttft_s += req.t_first - req.t_submit
+                self._ttft_n += 1
             if was_requeued and (len(req.out_tokens) >= req.max_new_tokens
                                  or n >= self.max_seq - 1):
                 # the re-admission's prefill gave the request's final
@@ -781,11 +828,24 @@ class Engine:
                 # decode again
                 self._finish(req, "done")
                 self._deactivate(i)
-                continue
-            slot.req = req
-            slot.dpos = self._start_pos(n)
-            slot.demitted = len(req.out_tokens)
-            slot.dactive = True
+            else:
+                slot.req = req
+                slot.dpos = self._start_pos(n)
+                slot.demitted = len(req.out_tokens)
+                slot.dactive = True
+            if ad is not None:
+                tr.close(ad)
+
+    def _trace_admit(self, req: Request):
+        """Open ``req``'s ``engine.admit`` span and record the wait in the
+        queue that it ends."""
+        tr = self.tracer
+        ad = tr.open("engine.admit", rid=req.rid)
+        t = tr.waited_since(req.rid, req.t_submit, req.preemptions > 0)
+        if t is not None:
+            tr.add("request.queue", t, ad.t0, rid=req.rid,
+                   requeue=req.preemptions > 0)
+        return ad
 
     def _start_pos(self, n: int) -> int:
         """The position of a slot's first decode step after an ``n``-row
@@ -795,19 +855,28 @@ class Engine:
 
     def _first_token(self, logits, req: Request, sp: SamplingParams) -> int:
         """The token a prefill emits: the argmax, or the draw with index
-        ``len(req.out_tokens)`` (its place in the stream)."""
+        ``len(req.out_tokens)`` (its place in the stream). Its host read
+        waits for the prefill."""
+        tr = self.tracer
+        ft = tr.open("engine.first_token", rid=req.rid) if tr.on else None
         logits = logits[:, :self.cfg.vocab]
         if sp.greedy:
-            return int(torch.argmax(logits[0]))
-        dev = logits.device
-        tok = sample_tokens(
-            logits, torch.tensor([sp.resolve_seed(req.rid) & 0xFFFFFFFF],
-                                 device=dev),
-            torch.tensor([len(req.out_tokens)], dtype=I32, device=dev),
-            torch.tensor([sp.temperature], dtype=F32, device=dev),
-            torch.tensor([sp.top_k], dtype=I32, device=dev),
-            torch.tensor([sp.top_p], dtype=F32, device=dev))
-        return int(tok[0])
+            tok = torch.argmax(logits[0])
+        else:
+            dev = logits.device
+            tok = sample_tokens(
+                logits,
+                torch.tensor([sp.resolve_seed(req.rid) & 0xFFFFFFFF],
+                             device=dev),
+                torch.tensor([len(req.out_tokens)], dtype=I32, device=dev),
+                torch.tensor([sp.temperature], dtype=F32, device=dev),
+                torch.tensor([sp.top_k], dtype=I32, device=dev),
+                torch.tensor([sp.top_p], dtype=F32, device=dev))[0]
+        tok = int(tok)
+        if ft is not None:
+            tr.close(ft)
+            tr.settle()
+        return tok
 
     def _set_slot(self, i: int, tok: int, pos: int, emitted: int,
                   req: Request, sp: SamplingParams) -> None:
@@ -829,6 +898,9 @@ class Engine:
         (paged) or slot ``i`` (contiguous) and reset slot ``i``'s carry in
         place (the body of the JAX engine's ``_make_admit``). Returns the
         first token."""
+        tr = self.tracer
+        pl = tr.open("engine.prefill.launch", rid=req.rid, timed=True) \
+            if tr.on else None
         n = len(prompt)
         b = self._bucket_len(n)
         pages = self.cm.prefill_pages(i, n, b)
@@ -845,6 +917,8 @@ class Engine:
             logits, kv = registry.prefill(self.params, self.cfg, tokens,
                                           length=n if self._pad_ok else None)
         self.cache = self.cm.write(self.cache, kv, slot=i, pages=pages)
+        if pl is not None:
+            tr.close(pl)
         tok0 = self._first_token(logits, req, sp)
         self._set_slot(i, tok0, self._start_pos(n), len(req.out_tokens) + 1,
                        req, sp)
@@ -856,6 +930,9 @@ class Engine:
         ``_make_admit_suffix``): the copy-on-write page copy if the plan
         has one, then the prefill of the suffix alone against the cached
         prefix rows, written into the slot's private pages."""
+        tr = self.tracer
+        pl = tr.open("engine.prefill.launch", rid=req.rid, timed=True) \
+            if tr.on else None
         n, ss = len(prompt), plan["suffix_start"]
         s_len = n - ss
         sb = self._suffix_bucket(s_len)
@@ -878,6 +955,8 @@ class Engine:
         self.cache = self.cm.write(
             self.cache, kv,
             pages=self._upload(self.cm.suffix_pages(i, ss, n, sb)))
+        if pl is not None:
+            tr.close(pl)
         tok0 = self._first_token(logits, req, sp)
         self._set_slot(i, tok0, n, len(req.out_tokens) + 1, req, sp)
         return tok0
@@ -888,10 +967,16 @@ class Engine:
         (no prefill, no token). False when the pool cannot hold the pages
         yet (head-of-line waits)."""
         saved, tok, dpos, demitted, n_pages, draft_saved = req.swap_state
-        if not self.cm.restore(i, n_pages):
+        tr = self.tracer
+        cs = tr.open("cache.alloc", rid=req.rid) if tr.on else None
+        held = self.cm.restore(i, n_pages)
+        if cs is not None:
+            tr.close(cs)
+        if not held:
             return False
         self.scheduler.pop()
         self._admissions += 1
+        ad = self._trace_admit(req) if tr.on else None
         sp = self._sampling_of(req)
         pages = self._upload(self.cm.pages_of(i))
         self.cache = self.cm.write(
@@ -908,6 +993,8 @@ class Engine:
         slot.dpos = dpos
         slot.demitted = demitted
         slot.dactive = True
+        if ad is not None:
+            tr.close(ad)
         return True
 
     def _preempt(self, victim: int) -> None:
@@ -918,6 +1005,8 @@ class Engine:
         assert self._pending is None
         slot = self.slots[victim]
         req = slot.req
+        tr = self.tracer
+        sp = tr.open("engine.preempt", rid=req.rid) if tr.on else None
         if self.preemption.mode == "swap":
             self._swap_out(victim)
         slot.req = None
@@ -926,12 +1015,17 @@ class Engine:
         req.preemptions += 1
         self.preemptions += 1
         self.scheduler.requeue(req)
+        if sp is not None:
+            tr.requeued(req.rid)
+            tr.close(sp)
 
     def _swap_out(self, i: int) -> None:
         """Copy slot ``i``'s pages (shared ones too), its device state and
         its draft rows to the host, into its request's ``swap_state``."""
         slot = self.slots[i]
         owned = self.cm.pages_of(i)
+        tr = self.tracer
+        sp = tr.open("engine.swap_out", rid=slot.req.rid) if tr.on else None
         saved = self.cm.read(self.cache, self._upload(owned))
         draft_saved = self._drafter.snapshot_slot(i) \
             if self._drafter is not None else None
@@ -940,6 +1034,8 @@ class Engine:
             int(self._token[i]), slot.dpos, slot.demitted, len(owned),
             draft_saved)
         self._swapped_out_pages += len(owned)
+        if sp is not None:
+            tr.close(sp)
 
     def _lookahead(self, slot: _Slot) -> int:
         """Positions slot's next step may write: 1, or under speculative
@@ -956,6 +1052,8 @@ class Engine:
         write. When the pool is dry (tree pages evicted first, by
         ``grow``): settle the in-flight step (finished slots free pages),
         then evict the preemption policy's victim until the writes fit."""
+        tr = self.tracer
+        sp = tr.open("cache.ensure_pages") if tr.on else None
         for i in range(self.n_slots):
             slot = self.slots[i]
             if slot.req is None or not slot.dactive:
@@ -964,7 +1062,7 @@ class Engine:
                                      - 1):
                 if self.cm.grow(i):
                     continue
-                self._drain()
+                self._drain("pages")
                 if self.slots[i].req is None or not self.slots[i].dactive:
                     break              # the drain settled this very slot
                 if self.cm.has_free:
@@ -975,6 +1073,8 @@ class Engine:
                 self._preempt(victim)
                 if victim == i:
                     break              # preempted ourselves; requeued
+        if sp is not None:
+            tr.close(sp)
 
     # -- failure isolation and crash recovery --------------------------------
 
@@ -1029,7 +1129,7 @@ class Engine:
         contiguous cache it is recomputed instead), release everything,
         reset the device state in place, and requeue the survivors in
         slot order: their streams finish as an undisturbed run's."""
-        self._drain()
+        self._drain("recovery")
         bad = getattr(exc, "slot", None)
         if bad is not None and not (0 <= bad < self.n_slots
                                     and self.slots[bad].req is not None):
@@ -1065,6 +1165,8 @@ class Engine:
         # reversed: slot 0's occupant ends at the head of the queue
         for req in reversed(survivors):
             self.scheduler.requeue(req)
+            if self.tracer.on:
+                self.tracer.requeued(req.rid)
         if self.cm.paged:
             self.cm.clear_tree()        # the tree's KV went with the pool
             self.cm.pool.check()
@@ -1087,87 +1189,100 @@ class Engine:
         t0 = time.perf_counter()
         admissions = self._admissions
         step_no = self._steps
-        if self.chaos is not None:
-            self.chaos.on_step(self, step_no)
-        if self._has_deadlines:
-            self._expire_deadlines()
-        if self._pending is not None and \
-                (len(self.scheduler)
-                 and all(s.req is not None for s in self.slots)
-                 or all(s.req is None or not s.dactive
-                        for s in self.slots)):
-            # apply the pending emit first when it can change what to do
-            # next: its done flags may free slots for waiting requests,
-            # or every occupied slot finishes inside it (dispatching first
-            # would burn an all-idle step)
-            self._drain()
-        self._admit()
-        self._ensure_pages()
-        if not any(s.req is not None for s in self.slots):
-            self._drain()
+        tr = self.tracer
+        sp = tr.open("engine.step", step=step_no) if tr.on else None
+        try:
+            if self.chaos is not None:
+                self.chaos.on_step(self, step_no)
+            if self._has_deadlines:
+                self._expire_deadlines()
+            if self._pending is not None and \
+                    (len(self.scheduler)
+                     and all(s.req is not None for s in self.slots)
+                     or all(s.req is None or not s.dactive
+                            for s in self.slots)):
+                # apply the pending emit first when it can change what to do
+                # next: its done flags may free slots for waiting requests,
+                # or every occupied slot finishes inside it (dispatching first
+                # would burn an all-idle step)
+                self._drains_first += 1
+                self._drain("before_dispatch")
             self._admit()
             self._ensure_pages()
             if not any(s.req is not None for s in self.slots):
-                if len(self.scheduler):
-                    # idle with a wedged head of line: reject it if it can
-                    # never fit, or end a chaos page hold that alone
-                    # blocks it, and try again next step
-                    if self._reject_unadmittable_head():
-                        return True
-                    if self.chaos is not None and self.chaos.relent(self):
-                        return True
-                return False
-        drafts = None
-        try:
-            # host work before the replay is queued: an error here leaves
-            # the carry, the pool and the draft cache as they were
-            if self.chaos is not None:
-                self.chaos.pre_dispatch(self, step_no)
-            if self.spec is not None and not self._drafter.on_device:
-                drafts = self._drafter.propose(self.slots, self._token,
-                                               self._pos)
-        except RuntimeError as e:
-            self._recover_step_fault(e)
-            return True
-        emit = self._dispatch(drafts)
-        self._steps += 1
-        if self.spec is not None:
-            # commits vary, so the host shadows advance from the readback:
-            # a spec step is applied at once (still one readback a step)
-            self._apply_spec((emit, step_no, [s.req for s in self.slots]))
+                self._drain("idle")
+                self._admit()
+                self._ensure_pages()
+                if not any(s.req is not None for s in self.slots):
+                    if len(self.scheduler):
+                        # idle with a wedged head of line: reject it if it can
+                        # never fit, or end a chaos page hold that alone
+                        # blocks it, and try again next step
+                        if self._reject_unadmittable_head():
+                            return True
+                        if self.chaos is not None and self.chaos.relent(self):
+                            return True
+                    return False
+            drafts = None
+            try:
+                # host work before the replay is queued: an error here leaves
+                # the carry, the pool and the draft cache as they were
+                if self.chaos is not None:
+                    self.chaos.pre_dispatch(self, step_no)
+                if self.spec is not None and not self._drafter.on_device:
+                    drafts = self._drafter.propose(self.slots, self._token,
+                                                   self._pos)
+            except RuntimeError as e:
+                self._recover_step_fault(e)
+                return True
+            emit = self._dispatch(drafts)
+            self._steps += 1
+            if self.spec is not None:
+                # commits vary, so the host shadows advance from the readback:
+                # a spec step is applied at once (still one readback a step)
+                self._apply_spec((emit, step_no, [s.req for s in self.slots]))
+                self._note_step()
+                if self._admissions == admissions:
+                    self._decode_s += time.perf_counter() - t0
+                    self._decode_steps += 1
+                return True
+            # mirror the device's stop conditions on the host shadows (this
+            # step's readback is still in flight)
+            for s in self.slots:
+                if s.req is not None and s.dactive:
+                    s.demitted += 1
+                    s.dpos += 1
+                    if (s.demitted >= s.req.max_new_tokens
+                            or s.dpos >= self.max_seq - 1):
+                        s.dactive = False
             self._note_step()
+            prev, self._pending = self._pending, (emit, step_no,
+                                                  [s.req for s in self.slots])
+            if prev is not None:
+                self._apply(prev)           # readback of step k-1 after k
             if self._admissions == admissions:
                 self._decode_s += time.perf_counter() - t0
                 self._decode_steps += 1
             return True
-        # mirror the device's stop conditions on the host shadows (this
-        # step's readback is still in flight)
-        for s in self.slots:
-            if s.req is not None and s.dactive:
-                s.demitted += 1
-                s.dpos += 1
-                if (s.demitted >= s.req.max_new_tokens
-                        or s.dpos >= self.max_seq - 1):
-                    s.dactive = False
-        self._note_step()
-        prev, self._pending = self._pending, (emit, step_no,
-                                              [s.req for s in self.slots])
-        if prev is not None:
-            self._apply(prev)           # readback of step k-1 after k
-        if self._admissions == admissions:
-            self._decode_s += time.perf_counter() - t0
-            self._decode_steps += 1
-        return True
+        finally:
+            if sp is not None:
+                tr.close(sp)
 
     def _note_step(self) -> None:
         self.cm.note_step({i: min(s.dpos, self.max_seq)
                            for i, s in enumerate(self.slots)
                            if s.req is not None})
 
-    def _drain(self) -> None:
+    def _drain(self, cause: str = "flush") -> None:
+        """Settle the in-flight readback, if any; ``cause`` names why (the
+        ``engine.drain`` span's)."""
         if self._pending is not None:
+            tr = self.tracer
+            sp = tr.open("engine.drain", cause=cause) if tr.on else None
             prev, self._pending = self._pending, None
             self._apply(prev)
+            if sp is not None:
+                tr.close(sp)
 
     def _readback(self, emit, step_no: int):
         """THE host readback of a step: wait for its one batched copy and
@@ -1175,8 +1290,13 @@ class Engine:
         pinned host buffer as numpy, after the chaos harness's corrupt
         readbacks (written into that host copy, never the device)."""
         host, event = emit
+        tr = self.tracer
+        sp = tr.open("engine.readback_wait", step=step_no) if tr.on else None
         if event is not None:
             event.synchronize()
+        if sp is not None:
+            tr.close(sp)
+            tr.settle()
         self._readbacks += 1
         arr = host.numpy()
         if self.chaos is not None:
@@ -1212,6 +1332,8 @@ class Engine:
     def _apply(self, pending) -> None:
         emit, step_no, reqs = pending
         tok, fin = self._readback(emit, step_no)
+        tr = self.tracer
+        ap = tr.open("engine.apply") if tr.on else None
         for i, req in enumerate(reqs):
             # ``req.done``: a request quarantined while the next step was
             # already queued must not take that step's late token
@@ -1225,6 +1347,8 @@ class Engine:
             self._tokens_out += 1
             if fin[i]:
                 self._finish_done(i, req)
+        if ap is not None:
+            tr.close(ap)
 
     def _apply_spec(self, pending) -> None:
         """Settle a spec step: its ``[k + 1, slots]`` commits (-1 past
@@ -1232,6 +1356,8 @@ class Engine:
         each slot's host shadows advance by its commits."""
         emit, step_no, reqs = pending
         arr = self._readback(emit, step_no)
+        tr = self.tracer
+        ap = tr.open("engine.apply") if tr.on else None
         tok, fin = arr[:-1].T, arr[-1]
         for i, req in enumerate(reqs):
             if req is None or req.done:
@@ -1259,6 +1385,8 @@ class Engine:
                     slot.dactive = False
             if fin[i]:
                 self._finish_done(i, req)
+        if ap is not None:
+            tr.close(ap)
 
     def flush(self) -> None:
         """Settle the in-flight readback (the streaming facade calls
@@ -1306,11 +1434,14 @@ class Engine:
             "slots": self.n_slots,
             "tokens": self._tokens_out,
             "tok_s": self._tokens_out / self._run_s if self._run_s else 0.0,
-            "ttft": float(np.mean(self._ttfts)) if self._ttfts else None,
+            "ttft": self._ttft_s / self._ttft_n if self._ttft_n else None,
             # host wall time of a step that admitted nothing: its
             # dispatch and the previous step's readback
             "decode_step_s": (self._decode_s / self._decode_steps
                               if self._decode_steps else None),
+            # readbacks settled before the step's dispatch: a full engine
+            # with requests waiting, or every slot finishing
+            "drains_before_dispatch": self._drains_first,
             "prefills": self._prefills,
             # request-lifecycle outcomes
             "aborted": self._lifecycle["aborted"],
