@@ -37,6 +37,15 @@ Phases, each of which fails the run (non-zero exit) on any error:
    Table 2 times it. With ``--parent DIR`` (a checkout of the parent
    commit) the parent's kernels are timed too, each run in its own
    process, in turns parent, change, change, parent.
+2c. The prefill attention (``csrc/prefill_attention.cu``) in bf16 at the
+   benchmark cells' prefill shapes (yi-34b's 512 and 2,048 buckets,
+   h2o-danube-1.8b's 1,024 and 4,096 buckets and a 7,168-row prompt past
+   its 4,096 window) against the fp32 walk it replaces on the serving
+   path (``prefill_attention.walk``) at the decode attentions' bf16
+   tolerance, timed beside its bound (the visible pairs' flops over 989
+   TFLOP/s), the walk and one ``scaled_dot_product_attention`` call
+   (the yardstick; the port never calls it). ``--prefill-only`` builds
+   the library and runs this phase alone.
 3. Tune: the Astra agent loop (``optimize_all``, greedy, 5 rounds) on the
    paper's three kernels and both decode attentions (``flash_decode``,
    ``paged_flash_decode``), tested on the card in fp32 and bf16 at the
@@ -664,6 +673,8 @@ SOURCES = {
         "src/repro/kernels/merge_attn_states.py:122"),
     "flash_decode": ("src/repro_torch/kernels/csrc/flash_decode.cu",
                      "src/repro/kernels/flash_decode.py:150"),
+    "prefill_attention": ("src/repro_torch/kernels/csrc/prefill_attention.cu",
+                          None),
 }
 REPS_COLD = 100
 CHAIN_LAYERS = 24
@@ -1040,6 +1051,87 @@ def run_case(case, tols=None) -> tuple:
         + f"bound {bound_ms * 1e3:.3f} us (bytes)"
         f"{', L2 cold' if l2_cold else ''}")
     return err[2], err[0], ms, plain_ms, lib_ms, bound_ms
+
+
+# the benchmark cells' prefill shapes: (label, seq, q heads, kv heads,
+# head_dim, window)
+PREFILL_SHAPES = (
+    ("yi-34b, 512 bucket", 512, 56, 8, 128, None),
+    ("yi-34b, 2,048 bucket", 2048, 56, 8, 128, None),
+    ("h2o-danube-1.8b, 1,024 bucket", 1024, 32, 8, 80, 4096),
+    ("h2o-danube-1.8b, 4,096 bucket", 4096, 32, 8, 80, 4096),
+    ("h2o-danube-1.8b, 7,168 exact", 7168, 32, 8, 80, 4096))
+
+
+def prefill_sdpa(q, k, v, window):
+    """The library yardstick: one scaled_dot_product_attention call on
+    the prefill inputs (views; a window's mask made once)."""
+    s = q.shape[1]
+    q4, k4, v4 = (t.transpose(1, 2) for t in (q, k, v))
+    if window is None or window >= s:
+        return lambda: torch.nn.functional.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True, enable_gqa=True)
+    i = torch.arange(s, device=q.device)
+    mask = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < window)
+    return lambda: torch.nn.functional.scaled_dot_product_attention(
+        q4, k4, v4, attn_mask=mask, enable_gqa=True)
+
+
+def phase_prefill_attention(rows_out: dict) -> bool:
+    """2c: the prefill attention at ``PREFILL_SHAPES`` against the walk,
+    timed beside its bound, the walk and SDPA; its kernel-table row (the
+    2,048-row yi shape) goes to ``rows_out``."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import prefill_attention as pa
+
+    ok, shapes = True, []
+    bf = torch.bfloat16
+    for label, s, hq, hkv, dh, window in PREFILL_SHAPES:
+        q = randn((1, s, hq, dh), bf, 1)
+        k = randn((1, s, hkv, dh), bf, 2)
+        v = randn((1, s, hkv, dh), bf, 3)
+        kern = functools.partial(ops.prefill_attention, q, k, v,
+                                 window=window)
+        plain = functools.partial(pa.walk, q, k, v, True, window)
+        n0 = pa.prefill_attention.launches
+        got = kern()
+        want, _ = plain()
+        torch.cuda.synchronize()
+        err, rel, good, need = compare(got, want, DECODE_TOL)
+        good &= pa.prefill_attention.launches == n0 + 1
+        ok &= good
+        flops, nbytes = pa.work(batch=1, seq=s, q_heads=hq, kv_heads=hkv,
+                                head_dim=dh, window=window)
+        bound_ms = max(flops / PEAK_OPS_S[bf], nbytes / HBM_BYTES_S) * 1e3
+        ms = device_ms(kern)
+        plain_ms = device_ms(lambda: plain()[0], reps=3, rounds=3)
+        lib_ms = device_ms(prefill_sdpa(q, k, v, window))
+        row = {"shape": label, "seq": s, "heads": f"{hq}/{hkv}",
+               "head_dim": dh, "window": window, "max_abs_err": err,
+               "least_atol": need, "ms": ms, "plain_ms": plain_ms,
+               "library_ms": lib_ms, "bound_ms": bound_ms,
+               "bound_share": bound_ms / ms, "flops": flops,
+               "bytes": nbytes}
+        shapes.append(row)
+        log(f"  prefill_attention bf16 {label} ({hq}/{hkv} heads of {dh}"
+            f"{', window ' + str(window) if window else ''}): max_abs="
+            f"{err:.3e} max_rel={rel:.3e} least atol {need:.2e} "
+            f"{'ok' if good else 'MISMATCH'}; kernel {ms * 1e3:.2f} us "
+            f"({100 * bound_ms / ms:.1f}% of its bound "
+            f"{bound_ms * 1e3:.2f} us, {flops / ms / 1e9:.1f} TFLOP/s), "
+            f"walk {plain_ms * 1e3:.2f} us, sdpa {lib_ms * 1e3:.2f} us")
+    main = shapes[1]
+    src, replaces = SOURCES["prefill_attention"]
+    rows_out["prefill_attention"] = {
+        "name": "prefill_attention", "route": "cuda", "source": src,
+        "replaces": replaces, "launches": None,
+        "max_abs_err": max(r["max_abs_err"] for r in shapes),
+        "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": "operations",
+        "library_ms": main["library_ms"], "shape": main["shape"],
+        "timing": "50 launches in a CUDA graph, L2 warm, median of 5 "
+                  "(the walk: 3, median of 3)", "shapes": shapes}
+    return ok
 
 
 def phase_kernels(rows_out: dict) -> bool:
@@ -1771,35 +1863,42 @@ def chaos_prompts(cfg, s: dict) -> list:
 
 def launches_a_pass(cfg) -> dict:
     """{"prefill", "decode": (rmsnorm calls, silu launches,
-    decode-attention launches)} of one pass of ``cfg``: a dense or MoE
-    layer calls the norm twice (and the final norm once) and silu once,
-    and in a decode pass the attention once; the Griffin hybrid's norms
-    are plain, every layer's MLP launches silu, and only its attention
-    layers (one a period of three) launch the attention at decode; the
-    xLSTM launches none of the kernels; the encoder-decoder's norms are
-    plain, its prefill launches silu in every encoder and decoder layer
-    and the attention twice a decoder layer (the BOS step's self and cross
-    attention), and a decode pass silu and the attention twice a decoder
-    layer."""
+    decode-attention launches, prefill-attention launches)} of one pass
+    of ``cfg``: a dense or MoE layer calls the norm twice (and the final
+    norm once) and silu once, in a decode pass the decode attention once
+    and in a prefill the prefill attention once (bf16 only: an fp32
+    model's stays on the walk); the Griffin hybrid's norms are plain,
+    every layer's MLP launches silu, and only its attention layers (one a
+    period of three) launch an attention; the xLSTM launches none of the
+    kernels; the encoder-decoder's norms are plain, its prefill launches
+    silu in every encoder and decoder layer and the decode attention twice
+    a decoder layer (the BOS step's self and cross attention; its encoder
+    is not causal), and a decode pass silu and the attention twice a
+    decoder layer."""
     n = cfg.n_layers
+    bf16 = cfg.dtype == "bfloat16"
     if cfg.family == "xlstm":
-        return {"prefill": (0, 0, 0), "decode": (0, 0, 0)}
+        return {"prefill": (0, 0, 0, 0), "decode": (0, 0, 0, 0)}
     if cfg.family == "encdec":
-        return {"prefill": (0, cfg.enc_layers + n, 2 * n),
-                "decode": (0, n, 2 * n)}
+        return {"prefill": (0, cfg.enc_layers + n, 2 * n, 0),
+                "decode": (0, n, 2 * n, 0)}
     if cfg.family == "hybrid":
-        return {"prefill": (0, n, 0), "decode": (0, n, n // 3)}
-    return {"prefill": (2 * n + 1, n, 0), "decode": (2 * n + 1, n, n)}
+        return {"prefill": (0, n, 0, bf16 * (n // 3)),
+                "decode": (0, n, n // 3, 0)}
+    return {"prefill": (2 * n + 1, n, 0, bf16 * n),
+            "decode": (2 * n + 1, n, n, 0)}
 
 
 def expected_launches(cfg, m: dict, k: int = 0, draft=None) -> dict:
     """What a serve's kernels launch, from its counts: every prefill
     (whole or suffix) and every decode pass launches what
     ``launches_a_pass`` says, the attention on the layout's kernel (a
-    two-pass rmsnorm twice a call). A spec step (``k`` drafts) makes
-    k + 1 target passes and, with a ``draft`` model config, k + 1 draft
-    passes (contiguous ``flash_decode``) and one draft prefill per
-    prefill. The merge is not on the path."""
+    two-pass rmsnorm twice a call); the prefill attention runs in whole
+    prefills only (a suffix prefill attends over the prefix's pages in
+    plain PyTorch). A spec step (``k`` drafts) makes k + 1 target passes
+    and, with a ``draft`` model config, k + 1 draft passes (contiguous
+    ``flash_decode``) and one whole draft prefill per prefill. The merge
+    is not on the path."""
     from repro_torch.kernels import ops
     from repro_torch.serving.engine import WARMUP_STEPS
 
@@ -1811,15 +1910,16 @@ def expected_launches(cfg, m: dict, k: int = 0, draft=None) -> dict:
     norm = 2 if ops.get_variant("fused_add_rmsnorm").two_pass else 1
     want = dict.fromkeys(SOURCES, 0)
     attn = "paged_flash_decode" if m["paged"] else "flash_decode"
-    models = [(cfg, attn)] + ([(draft, "flash_decode")]
-                              if draft is not None else [])
-    for c, kernel in models:
+    models = [(cfg, attn, m["prefills"])] + (
+        [(draft, "flash_decode", prefills)] if draft is not None else [])
+    for c, kernel, whole in models:
         counts = launches_a_pass(c)
         for kind, times in (("prefill", prefills), ("decode", passes)):
-            norms, silu, attn_calls = counts[kind]
+            norms, silu, attn_calls, _ = counts[kind]
             want["fused_add_rmsnorm"] += norm * norms * times
             want["silu_and_mul"] += silu * times
             want[kernel] += attn_calls * times
+        want["prefill_attention"] += counts["prefill"][3] * whole
     return want
 
 
@@ -3224,7 +3324,8 @@ def phase_decode_32k(card: str) -> tuple[bool, dict]:
     want = {"fused_add_rmsnorm": (2 * cfg.n_layers + 1) * steps,
             "silu_and_mul": cfg.n_layers * steps,
             "flash_decode": cfg.n_layers * steps,
-            "paged_flash_decode": 0, "merge_attn_states_lse": 0}
+            "paged_flash_decode": 0, "merge_attn_states_lse": 0,
+            "prefill_attention": 0}
     ok = counts == want
     finite = bool(torch.isfinite(logits).all())
     ok &= finite and tuple(logits.shape) == (b, cfg.padded_vocab)
@@ -3334,6 +3435,8 @@ def main() -> int:
                     "under SRC, and stop")
     ap.add_argument("--dry-run-only", action="store_true",
                     help="build the kernels, run phase 8 alone, and stop")
+    ap.add_argument("--prefill-only", action="store_true",
+                    help="build the kernels, run phase 2c alone, and stop")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; this script runs only "
@@ -3356,7 +3459,7 @@ def main() -> int:
         journal_child(args.journal_child[0], int(args.journal_child[1]))
         return 0
     from repro_torch.kernels import _build, ops
-    from repro_torch.kernels.registry import get_space
+    from repro_torch.kernels.registry import get_space, registered_kernels
     from repro_torch.launch.serve import card as card_line
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3379,6 +3482,14 @@ def main() -> int:
         log(f"phase 8 alone {'ok' if good else 'FAILED'} in "
             f"{time.perf_counter() - t0:.1f} s")
         return 0 if good else 1
+    if args.prefill_only:
+        t0 = time.perf_counter()
+        rows = {}
+        good = phase_prefill_attention(rows)
+        log(json.dumps(rows["prefill_attention"]))
+        log(f"phase 2c alone {'ok' if good else 'FAILED'} in "
+            f"{time.perf_counter() - t0:.1f} s")
+        return 0 if good else 1
 
     ok: dict = {}
     rows: dict = {}
@@ -3387,6 +3498,11 @@ def main() -> int:
     ok["kernels"] = phase_kernels(rows)
     ok["kernels"] &= phase_edges()
     phase_s["kernels"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    log("phase 2c: the prefill attention at the cells' shapes against the "
+        "walk, beside its bound and SDPA")
+    ok["prefill attention"] = phase_prefill_attention(rows)
+    phase_s["prefill attention"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     log("phase 2b: rmsnorm and silu at the decode, prefill and largest "
         "suite shapes" + (f", beside the parent in {args.parent}"
@@ -3524,10 +3640,15 @@ def main() -> int:
     rows["merge_attn_states_lse"]["note"] = (
         "not on the serve path (the model inlines its merge); the tune "
         "phase (the agent loop) drives it")
+    rows["prefill_attention"]["note"] = (
+        "replaces no TPU kernel (JAX computes this attention in jnp); the "
+        "bf16 prefills of the serve phases drive it; no search space, so "
+        "the tune paths launch none")
     idle = [n for n, r in rows.items() if not r["launches"]]
     if idle:
         log(f"FAIL: no launch on the driven paths for {idle}")
-    idle_workers = [n for n in rows if not process_counts[n]]
+    idle_workers = [n for n in rows if n in registered_kernels()
+                    and not process_counts[n]]
     if idle_workers:
         log(f"FAIL: no launch in the workers for {idle_workers}")
         idle = idle or idle_workers

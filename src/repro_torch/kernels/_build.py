@@ -43,6 +43,8 @@ SIGNATURES = {
     + (_F, _I, _I, _I, _I, _P),
     "repro_flash_decode_attention": (_P,) * 8 + (_I,) * 10
     + (_F, _I, _I, _I, _I, _P),
+    "repro_prefill_attention": (_P,) * 4 + (_I,) * 5 + (_L,) * 9
+    + (_I, _F, _P),
     "repro_empty": (_P,),
 }
 

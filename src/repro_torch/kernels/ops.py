@@ -37,6 +37,7 @@ import torch
 from repro_torch.kernels import flash_decode as _fd
 from repro_torch.kernels import fused_add_rmsnorm as _rms
 from repro_torch.kernels import merge_attn_states as _merge
+from repro_torch.kernels import prefill_attention as _prefill
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import registry as _registry
 from repro_torch.kernels import silu_and_mul as _silu
@@ -48,7 +49,8 @@ _WRAPPERS = {"fused_add_rmsnorm": _rms.fused_add_rmsnorm,
              "silu_and_mul": _silu.silu_and_mul,
              "paged_flash_decode": _fd.paged_flash_decode_attention,
              "merge_attn_states_lse": _merge.merge_attn_states_lse,
-             "flash_decode": _fd.flash_decode_attention}
+             "flash_decode": _fd.flash_decode_attention,
+             "prefill_attention": _prefill.prefill_attention}
 
 
 def set_variants(**kwargs) -> None:
@@ -233,6 +235,18 @@ def paged_flash_decode_attention(q, k_pages, v_pages, page_table, *,
         return _fd.paged_flash_decode_attention(
             q, k_pages, v_pages, page_table, kv_len=kv_len,
             sm_scale=sm_scale, variant=variant)
+
+
+def prefill_attention(q, k, v, *, window=None):
+    """Causal GQA self-attention over whole prompts, optionally over a
+    sliding window: q ``[batch, seq, q_heads, head_dim]``, k/v ``[batch,
+    seq, kv_heads, head_dim]``. ``layers.flash_attention`` sends it its
+    causal calls in bf16 without grad (on DTensors, each rank's local
+    shards). The kernel has no genome or search space: it is not one of
+    the JAX package's Pallas kernels, and the roofline counter charges
+    it by the ops of its caller's ``flash`` region, as it charges the
+    walk."""
+    return _prefill.prefill_attention(q, k, v, window=window)
 
 
 def launch_counts() -> dict:

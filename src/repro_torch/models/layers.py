@@ -1,9 +1,10 @@
 """Dense decoder layers (the dense part of the JAX ``models/layers.py``).
 
 Every layer calls the kernels through ``repro_torch.kernels.ops``, never a
-kernel module directly. Projections are plain matrix products; the
-prefill attention (causal, windowed where the config has a window;
-non-causal in the encoder-decoder's encoder), the
+kernel module directly. Projections are plain matrix products. The
+prefill attention (causal, windowed where the config has a window) runs
+the port's prefill-attention kernel in bf16 without grad; its other calls
+(training, the encoder-decoder's non-causal ones, fp32 models), the
 suffix prefill's two-segment attention, the rotary embedding and the
 decode-cache write are plain PyTorch, the attention and rope in fp32, as
 the JAX package computes them in jnp outside any Pallas kernel.
@@ -25,10 +26,12 @@ import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.kernels.prefill_attention import (CHUNK, MASKED,
+                                                   chunk_mask, kv_chunk,
+                                                   walk)
 from repro_torch.sharding import spmd, tp
 
 F32 = torch.float32
-MASKED = -1e30        # finite -inf of the JAX flash attention
 
 
 def _requires_grad(args) -> bool:
@@ -165,61 +168,6 @@ def _heads_first(t, hkv: int):
     return t.to(F32).reshape(b, s, hkv, hq // hkv, dh).permute(0, 2, 3, 1, 4)
 
 
-def _kv_chunk(t, c0: int, chunk: int):
-    """Rows ``[c0, c0 + chunk)`` of ``t [B, Skv, Hkv, dh]`` in fp32,
-    zero-padded to ``chunk`` rows, as JAX pads K/V to a multiple of the
-    chunk."""
-    part = t[:, c0:c0 + chunk].to(F32)
-    if part.shape[1] < chunk:
-        part = torch.nn.functional.pad(part,
-                                       (0, 0, 0, 0, 0, chunk - part.shape[1]))
-    return part
-
-
-def _flash_mask(s, q_pos, c0: int, chunk: int, causal: bool, window):
-    """``s [..., Sq, chunk]`` with the keys a causal (windowed) query at
-    ``q_pos`` may not see at ``MASKED``; a non-causal call masks
-    nothing."""
-    if not causal:
-        return s
-    k_pos = c0 + torch.arange(chunk, device=s.device)
-    mask = k_pos[None, :] <= q_pos[:, None]
-    if window is not None:
-        mask &= (q_pos[:, None] - k_pos[None, :]) < window
-    return torch.where(mask, s, MASKED)
-
-
-def _flash_forward(q, k, v, causal, window, chunk, with_lse=False):
-    """The online-softmax walk over KV chunks (JAX ``_flash_fwd_scan``).
-    Returns (out ``[B, Sq, Hq, dh]`` in q's dtype, the log-sum-exp ``[B,
-    Hkv, G, Sq]`` in fp32 or None)."""
-    b, sq, hq, dh = q.shape
-    skv, hkv = k.shape[1], k.shape[2]
-    g = hq // hkv
-    chunk = min(chunk, skv)
-    qf = (q.to(F32) * dh ** -0.5).reshape(b, sq, hkv, g, dh) \
-        .permute(0, 2, 3, 1, 4)                           # [B,Hkv,G,Sq,D]
-    q_pos = torch.arange(sq, device=q.device)
-    m = torch.full((b, hkv, g, sq), MASKED, dtype=F32, device=q.device)
-    l = torch.zeros_like(m)
-    acc = torch.zeros((b, hkv, g, sq, dh), dtype=F32, device=q.device)
-    for c0 in range(0, skv, chunk):
-        ks, vs = _kv_chunk(k, c0, chunk), _kv_chunk(v, c0, chunk)
-        s = _flash_mask(torch.einsum("bhgqd,bkhd->bhgqk", qf, ks), q_pos, c0,
-                        chunk, causal, window)
-        m_new = torch.maximum(m, s.amax(dim=-1))
-        p = torch.exp(s - m_new[..., None])
-        alpha = torch.exp(m - m_new)
-        l = l * alpha + p.sum(dim=-1)
-        acc = acc * alpha[..., None] + torch.einsum("bhgqk,bkhd->bhgqd",
-                                                    p, vs)
-        m = m_new
-    out = acc / torch.clamp(l, min=1e-30)[..., None]
-    out = out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, dh).to(q.dtype)
-    lse = m + torch.log(torch.clamp(l, min=1e-30)) if with_lse else None
-    return out, lse
-
-
 def _flash_backward(q, k, v, out, lse, dout, causal, window, chunk):
     """JAX's ``_flash_backward``: per KV chunk the probabilities are
     recomputed from ``lse`` (``p = exp(s - lse)``), ``delta = sum(dout *
@@ -237,9 +185,9 @@ def _flash_backward(q, k, v, out, lse, dout, causal, window, chunk):
     dq = torch.zeros_like(qf)
     dks, dvs = [], []
     for c0 in range(0, skv, chunk):
-        ks, vs = _kv_chunk(k, c0, chunk), _kv_chunk(v, c0, chunk)
-        s = _flash_mask(torch.einsum("bhgqd,bkhd->bhgqk", qf, ks), q_pos, c0,
-                        chunk, causal, window)
+        ks, vs = kv_chunk(k, c0, chunk), kv_chunk(v, c0, chunk)
+        s = chunk_mask(torch.einsum("bhgqd,bkhd->bhgqk", qf, ks), q_pos, c0,
+                       chunk, causal, window)
         p = torch.exp(s - lse[..., None])                  # recomputed
         dp = torch.einsum("bhgqd,bkhd->bhgqk", dof, vs)
         ds = p * (dp - delta[..., None])
@@ -259,8 +207,7 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, chunk):
-        out, lse = _flash_forward(q, k, v, causal, window, chunk,
-                                  with_lse=True)
+        out, lse = walk(q, k, v, causal, window, chunk, with_lse=True)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.args = (causal, window, chunk)
         return out
@@ -274,17 +221,24 @@ class _FlashAttention(torch.autograd.Function):
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window=None,
-                    chunk: int = 512):
-    """Self-attention in fp32: causal, optionally over a sliding window of
+                    chunk: int = CHUNK):
+    """Self-attention: causal, optionally over a sliding window of
     ``window`` positions (query i sees keys i - window < j <= i), or with
     ``causal=False`` over every key (the encoder's, and cross-attention).
     q: ``[B, Sq, Hq, dh]``, k/v: ``[B, Skv, Hkv, dh]`` (GQA by head
-    grouping). KV is walked in ``chunk``-row steps with an online softmax,
-    as the JAX ``_flash_fwd_scan`` does, so the scores of one step (``[B,
-    Hkv, G, Sq, chunk]``) are the largest temporary. As in JAX, K/V are
-    zero-padded to a multiple of ``min(chunk, Skv)`` rows: a causal mask
-    hides the pad rows, a non-causal call masks nothing, so they take
-    softmax weight (score 0, value 0) there.
+    grouping).
+
+    A causal call in bf16 without grad (every prefill on the serving path)
+    goes to ``ops.prefill_attention``: the Hopper kernel on the card, the
+    walk on the CPU. The other calls run the walk itself
+    (``kernels/prefill_attention.py::walk``): KV in ``chunk``-row steps
+    with an fp32 online softmax, as the JAX ``_flash_fwd_scan`` does, so
+    the scores of one step (``[B, Hkv, G, Sq, chunk]``) are the largest
+    temporary. As in JAX, K/V are zero-padded to a multiple of ``min(chunk,
+    Skv)`` rows: a causal mask hides the pad rows, a non-causal call masks
+    nothing, so they take softmax weight (score 0, value 0) there, which
+    is why non-causal calls stay on the walk. An fp32 call stays on it
+    too: the kernel computes in bf16.
 
     With grad mode on and an input that requires grad, the call goes
     through ``_FlashAttention``, whose backward recomputes each chunk's
@@ -302,7 +256,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
         if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                         or v.requires_grad):
             return _FlashAttention.apply(q, k, v, causal, window, chunk)
-        return _flash_forward(q, k, v, causal, window, chunk)[0]
+        if causal and q.dtype == torch.bfloat16:
+            return ops.prefill_attention(q, k, v, window=window)
+        return walk(q, k, v, causal, window, chunk)[0]
 
 
 def attention_block(p, x, cfg: ModelConfig, *, positions=None):

@@ -6,7 +6,8 @@ library at first use) and skips without one. Run them on the card with
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances: fp32 rtol 1e-5 / atol 1e-4 and bf16 3e-2 / 3e-2, the JAX
-package's kernel tolerances; the decode attentions in bf16 1e-2 / 4e-3.
+package's kernel tolerances; the decode attentions and the prefill
+attention in bf16 1e-2 / 4e-3.
 The kernels sum in another order than the plain versions and use CUDA's
 expf/rsqrtf, so fp32 agrees to rounding.
 Each genome's kernel is held against the same genome's plain version; a
@@ -23,8 +24,8 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core import costmodel  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
-    flash_decode, fused_add_rmsnorm, merge_attn_states, ops, ref, registry,
-    silu_and_mul)
+    flash_decode, fused_add_rmsnorm, merge_attn_states, ops,
+    prefill_attention, ref, registry, silu_and_mul)
 
 pytestmark = pytest.mark.cuda
 
@@ -1003,15 +1004,18 @@ def _serve(params, cfg, dev, lens, max_new, **kw):
 def _want_launches(cfg, paged, steps, prefills, warmups=0):
     """What the path launches: rmsnorm (twice a call for a two-pass
     genome) 2L+1 times and silu L times a forward pass, the layout's
-    decode attention L times a decode pass; warm-up passes are decode
-    passes the device ran."""
+    decode attention L times a decode pass, the prefill attention L times
+    a prefill in bf16 (an fp32 model's stays on the walk); warm-up passes
+    are decode passes the device ran."""
     rms = 2 if ops.get_variant("fused_add_rmsnorm").two_pass else 1
     decode = steps + warmups
     want = {"fused_add_rmsnorm": rms * (2 * cfg.n_layers + 1)
             * (decode + prefills),
             "silu_and_mul": cfg.n_layers * (decode + prefills),
             "paged_flash_decode": 0, "flash_decode": 0,
-            "merge_attn_states_lse": 0}
+            "merge_attn_states_lse": 0,
+            "prefill_attention": cfg.n_layers * prefills
+            if cfg.dtype == "bfloat16" else 0}
     want["paged_flash_decode" if paged else "flash_decode"] = \
         cfg.n_layers * decode
     return want
@@ -1673,3 +1677,98 @@ def test_mesh_engine_at_world_one_matches_the_single_rank_engine(dev):
     # layer, the vocab once
     assert sum(gathers) == 2 * cfg.n_layers + 1
     assert tp.current() is None
+
+
+# --------------------------------------------------------------------------
+# the prefill attention (csrc/prefill_attention.cu)
+# --------------------------------------------------------------------------
+
+# (batch, seq, q heads, kv heads, head_dim, window): yi-34b, h2o-danube-1.8b
+# (below, at, one past and far past its window), qwen2-0.5b,
+# recurrentgemma-2b's local attention; one row, one below and one above a
+# 64-row tile, a batch of two prompts, the reduced configs' width, a
+# group of one (seamless-m4t-large-v2's 16/16 heads of 64) under a window
+PREFILL_SHAPES = [
+    (1, 512, 56, 8, 128, None), (1, 2048, 56, 8, 128, None),
+    (1, 1024, 32, 8, 80, 4096), (1, 4096, 32, 8, 80, 4096),
+    (1, 4097, 32, 8, 80, 4096), (1, 7168, 32, 8, 80, 4096),
+    (1, 1024, 14, 2, 64, None), (1, 3000, 10, 1, 256, 2048),
+    (1, 1, 14, 2, 64, None), (1, 63, 56, 8, 128, None),
+    (1, 65, 32, 8, 80, 4096), (2, 300, 14, 2, 64, None),
+    (1, 200, 4, 2, 32, 64), (1, 333, 16, 16, 64, 100)]
+
+
+@pytest.mark.parametrize("shape", PREFILL_SHAPES, ids=str)
+def test_prefill_attention_matches_the_walk(dev, shape):
+    """bf16: the kernel against the fp32 walk on the same inputs (p is
+    rounded to bf16 for p.V, as in the decode kernels); each call is one
+    launch."""
+    b, s, hq, hkv, dh, window = shape
+    q = _randn((b, s, hq, dh), torch.bfloat16, dev, 0)
+    k = _randn((b, s, hkv, dh), torch.bfloat16, dev, 1)
+    v = _randn((b, s, hkv, dh), torch.bfloat16, dev, 2)
+    n0 = prefill_attention.prefill_attention.launches
+    out = ops.prefill_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert prefill_attention.prefill_attention.launches == n0 + 1
+    assert out.shape == q.shape and out.is_contiguous()
+    want, _ = prefill_attention.walk(q, k, v, True, window)
+    _close(out, want, torch.bfloat16, DECODE_TOL)
+
+
+def test_prefill_attention_reads_strided_inputs(dev):
+    """q, k and v as views of one fused [S, (Hq + 2 Hkv) * dh] projection
+    (row strides past the head dim) give the contiguous copies' result."""
+    s, hq, hkv, dh = 300, 32, 8, 80
+    fused = _randn((1, s, (hq + 2 * hkv) * dh), torch.bfloat16, dev, 4)
+    q, k, v = fused.split((hq * dh, hkv * dh, hkv * dh), -1)
+    q, k, v = (t.unflatten(-1, (-1, dh)) for t in (q, k, v))
+    assert not q.is_contiguous()
+    got = ops.prefill_attention(q, k, v, window=128)
+    want = ops.prefill_attention(q.contiguous(), k.contiguous(),
+                                 v.contiguous(), window=128)
+    assert torch.equal(got, want)
+
+
+def test_prefill_attention_on_the_card_launches_or_raises(dev):
+    q = _randn((1, 64, 4, 32), torch.float32, dev, 0)
+    with pytest.raises(ValueError):
+        ops.prefill_attention(q, q[:, :, :2], q[:, :, :2])
+    q = _randn((1, 64, 4, 48), torch.bfloat16, dev, 0)
+    with pytest.raises(ValueError):
+        ops.prefill_attention(q, q[:, :, :2].contiguous(),
+                              q[:, :, :2].contiguous())
+
+
+@pytest.mark.parametrize("causal,grad", [(False, False), (True, True)])
+def test_non_causal_and_grad_calls_launch_no_prefill_attention(dev, causal,
+                                                               grad):
+    from repro_torch.models import layers
+    q, k, v = (_randn(shape, torch.bfloat16, dev, i).requires_grad_(grad)
+               for i, shape in enumerate(((1, 100, 4, 32), (1, 100, 2, 32),
+                                          (1, 100, 2, 32))))
+    n0 = prefill_attention.prefill_attention.launches
+    out = layers.flash_attention(q, k, v, causal=causal)
+    if grad:
+        out.float().sum().backward()
+    torch.cuda.synchronize()
+    assert prefill_attention.prefill_attention.launches == n0
+
+
+def test_no_bf16_prefill_reaches_the_walk_on_the_card(dev, monkeypatch):
+    """bf16, reduced h2o-danube-1.8b (prompts across its window): with the
+    walk made to raise, every prefill still runs, through the kernel, L
+    launches a prefill."""
+    from repro_torch.models import layers
+
+    def refuse(*a, **k):
+        raise AssertionError("a bf16 prefill reached the fp32 walk")
+
+    cfg, params = _smoke("h2o-danube-1.8b", "bfloat16")
+    monkeypatch.setattr(layers, "walk", refuse)
+    lens = [5, 40, 60, 100, 70]
+    n0 = prefill_attention.prefill_attention.launches
+    streams, eng = _serve(params, cfg, dev, lens, 8, slots=3, max_seq=192)
+    assert len(streams) == len(lens)
+    assert prefill_attention.prefill_attention.launches - n0 == \
+        cfg.n_layers * eng.stats()["prefills"] == cfg.n_layers * len(lens)

@@ -234,7 +234,7 @@ def test_serve_command_runs_the_reduced_config_on_cpu():
     assert out["launches"] == {"fused_add_rmsnorm": 0, "silu_and_mul": 0,
                                "paged_flash_decode": 0,
                                "merge_attn_states_lse": 0,
-                               "flash_decode": 0}
+                               "flash_decode": 0, "prefill_attention": 0}
 
 
 @pytest.mark.parametrize("preemption", ["swap", "recompute"])
